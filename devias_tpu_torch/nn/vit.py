@@ -1,0 +1,268 @@
+"""VideoMAE-style video ViT backbone (port of `devias_tpu/nn/vit.py`).
+
+Channels-last clips [B, T, H, W, C] in, tokens [B, N, D] out. Parameters
+are float32 and cast to the compute dtype where they are used, as the JAX
+package does; LayerNorm scales and biases stay float32. The module tree
+follows the reference key layout (`patch_embed.proj.weight`,
+`blocks.{i}.attn.qkv.weight`, ...), so `load_state_dict(strict=True)`
+takes what `ckpt/from_jax.py` produces. Eval forward only: drop-path and
+dropout rates are accepted and do nothing.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from devias_tpu_torch.kernels.attention import attention_qkv_reference, fused_attention_qkv
+
+PATCH_SIZE = 16
+NORM_EPS = 1e-6
+MLP_RATIO = 4
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+PATCH_EMBED_MODES = ("conv", "patchify", "dot")
+
+
+def sinusoid_position_table(n_position: int, d_hid: int) -> np.ndarray:
+    """Fixed sine/cosine table: angle[p, j] = p / 10000^(2(j//2)/d), sin on
+    even dims and cos on odd ones."""
+    pos = np.arange(n_position, dtype=np.float64)[:, None]
+    j = np.arange(d_hid, dtype=np.float64)[None, :]
+    angle = pos / np.power(10000.0, 2.0 * (j // 2) / d_hid)
+    table = np.zeros((n_position, d_hid), dtype=np.float64)
+    table[:, 0::2] = np.sin(angle[:, 0::2])
+    table[:, 1::2] = np.cos(angle[:, 1::2])
+    return table.astype(np.float32)
+
+
+def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """Normal(0, std) truncated at two standard deviations; zeros at std 0."""
+    with torch.no_grad():
+        if std == 0.0:
+            t.zero_()
+        else:
+            nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Initialise every parameter of `module` from `generator`: each
+    submodule with an `init_own_params(generator)` sets its direct
+    parameters."""
+    for m in module.modules():
+        own = getattr(m, "init_own_params", None)
+        if own is not None:
+            own(generator)
+
+
+class Linear(nn.Linear):
+    """nn.Linear whose float32 weights are cast to the input's dtype at use
+    (flax `nn.Dense(dtype=...)` semantics). `init_std` is the truncated
+    normal's std; biases start at zero."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, init_std: float = 0.02):
+        super().__init__(in_features, out_features, bias=bias)
+        self.init_std = init_std
+
+    def init_own_params(self, generator: torch.Generator) -> None:
+        trunc_normal_(self.weight, self.init_std, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class FastLayerNorm(nn.Module):
+    """LayerNorm with float32 statistics in the fast-variance form
+    E[x^2] - E[x]^2 and float32 scale/bias, output in the compute dtype
+    (`devias_tpu/nn/vit.py:89-138`, forward only)."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def init_own_params(self, generator: torch.Generator) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(self.dtype).float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
+        y = (xf - mean) * torch.rsqrt(var + NORM_EPS) * self.weight + self.bias
+        return y.to(self.dtype)
+
+
+class Mlp(nn.Module):
+    """fc1 -> GELU -> fc2. GELU is the tanh form when compute is bf16 and
+    exact erf otherwise; `gelu_approx` True/False overrides."""
+
+    def __init__(self, dim: int, hidden_dim: int, gelu_approx: Optional[bool] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = Linear(dim, hidden_dim)
+        self.fc2 = Linear(hidden_dim, dim)
+        self.approx = dtype == torch.bfloat16 if gelu_approx is None else gelu_approx
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.fc1(x.to(self.dtype))
+        x = F.gelu(x, approximate="tanh" if self.approx else "none")
+        return self.fc2(x)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with one qkv weight, learnable q and v
+    biases and a zero k bias. `fused=True` calls K1 on the [B, N, 3C]
+    projection with no head transposes; otherwise the plain einsum path."""
+
+    def __init__(self, dim: int, num_heads: int, fused: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.scale = (dim // num_heads) ** -0.5
+        self.fused = fused
+        self.dtype = dtype
+        self.qkv = Linear(dim, 3 * dim, bias=False)
+        self.q_bias = nn.Parameter(torch.zeros(dim))
+        self.v_bias = nn.Parameter(torch.zeros(dim))
+        self.proj = Linear(dim, dim)
+
+    def init_own_params(self, generator: torch.Generator) -> None:
+        nn.init.zeros_(self.q_bias)
+        nn.init.zeros_(self.v_bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
+        qkv = self.qkv(x.to(self.dtype)) + bias.to(self.dtype)
+        attend = fused_attention_qkv if self.fused else attention_qkv_reference
+        return self.proj(attend(qkv, self.num_heads, self.scale))
+
+
+class Block(nn.Module):
+    """Pre-norm transformer block."""
+
+    def __init__(self, dim: int, num_heads: int, fused_attention: bool = False, exact_gelu: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.norm1 = FastLayerNorm(dim, dtype)
+        self.attn = Attention(dim, num_heads, fused_attention, dtype)
+        self.norm2 = FastLayerNorm(dim, dtype)
+        self.mlp = Mlp(dim, MLP_RATIO * dim, False if exact_gelu else None, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x))
+        return x + self.mlp(self.norm2(x))
+
+
+def patchify_video(x: torch.Tensor, tubelet: int = 2, patch: int = PATCH_SIZE) -> torch.Tensor:
+    """[B, T, H, W, C] -> [B, t*h*w, tubelet*p*p*C], patches flattened in
+    (t, ph, pw, c) order and tokens in (t, h, w) order."""
+    B, T, H, W, C = x.shape
+    if H % patch or W % patch or T % tubelet:
+        raise ValueError(f"input {tuple(x.shape)} not divisible by patch {tubelet}x{patch}x{patch}")
+    t, h, w = T // tubelet, H // patch, W // patch
+    x = x.reshape(B, t, tubelet, h, patch, w, patch, C).permute(0, 1, 3, 5, 2, 4, 6, 7)
+    return x.reshape(B, t * h * w, tubelet * patch * patch * C)
+
+
+class _Conv3dParams(nn.Module):
+    """Holds the tubelet embedding in the reference's Conv3d layout
+    [D, 3, tubelet, p, p] (key `patch_embed.proj.weight`); never run as a
+    convolution."""
+
+    def __init__(self, embed_dim: int, tubelet: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(embed_dim, 3, tubelet, PATCH_SIZE, PATCH_SIZE))
+        self.bias = nn.Parameter(torch.zeros(embed_dim))
+
+    def init_own_params(self, generator: torch.Generator) -> None:
+        fan_in = self.weight[0].numel()
+        trunc_normal_(self.weight, fan_in ** -0.5, generator)
+        nn.init.zeros_(self.bias)
+
+
+class PatchEmbed3D(nn.Module):
+    """Tubelet patch embedding as patchify + one matmul. The JAX package's
+    `conv`, `patchify` and `dot` modes are the same linear map, so every
+    mode runs this one (a cuDNN Conv3d would run in TF32 by default)."""
+
+    def __init__(self, embed_dim: int = 768, tubelet_size: int = 2, mode: Optional[str] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if mode is not None and mode not in PATCH_EMBED_MODES:
+            raise ValueError(f"unknown patch-embed mode {mode!r}; have {PATCH_EMBED_MODES}")
+        self.tubelet_size = tubelet_size
+        self.dtype = dtype
+        self.proj = _Conv3dParams(embed_dim, tubelet_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        patches = patchify_video(x.to(self.dtype), self.tubelet_size)
+        w = self.proj.weight  # [D, C, t, p, p] -> [t*p*p*C, D] in (t, ph, pw, c) order
+        kernel = w.permute(2, 3, 4, 1, 0).reshape(-1, w.shape[0]).to(self.dtype)
+        return patches @ kernel + self.proj.bias.to(self.dtype)
+
+
+class VideoViT(nn.Module):
+    """ViT video backbone on 16x16 patches: patch embed, fixed sinusoid
+    positions, `depth` blocks, final LayerNorm (skipped when
+    `final_norm=False`). `use_cls_token` prepends a learned CLS token;
+    `input_norm` applies the ImageNet normalisation on the device (uint8 or
+    [0, 1] clips). Dropout and drop-path rates are accepted for the JAX
+    package's signature and do nothing in this eval forward."""
+
+    def __init__(self, embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
+                 drop_rate: float = 0.0, attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
+                 tubelet_size: int = 2, use_cls_token: bool = False, final_norm: bool = True,
+                 fused_attention: bool = False, exact_gelu: bool = False,
+                 patch_embed_mode: Optional[str] = None, input_norm: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.input_norm = input_norm
+        self.dtype = dtype
+        self.patch_embed = PatchEmbed3D(embed_dim, tubelet_size, patch_embed_mode, dtype)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim)) if use_cls_token else None
+        self.blocks = nn.ModuleList([
+            Block(embed_dim, num_heads, fused_attention, exact_gelu, dtype) for _ in range(depth)])
+        self.norm = FastLayerNorm(embed_dim, dtype) if final_norm else None
+        self._pos_cache: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+    def init_own_params(self, generator: torch.Generator) -> None:
+        if self.cls_token is not None:
+            trunc_normal_(self.cls_token, 0.02, generator)
+
+    def _pos(self, n: int, device: torch.device) -> torch.Tensor:
+        key = (n, device)
+        if key not in self._pos_cache:
+            table = sinusoid_position_table(n, self.embed_dim)
+            self._pos_cache[key] = torch.from_numpy(table).to(device=device, dtype=self.dtype)
+        return self._pos_cache[key]
+
+    def forward_features(self, x: torch.Tensor) -> torch.Tensor:
+        if self.input_norm:
+            if x.dtype == torch.uint8:
+                x = x.to(self.dtype) / 255.0
+            mean = torch.tensor(IMAGENET_MEAN, dtype=self.dtype, device=x.device)
+            std = torch.tensor(IMAGENET_STD, dtype=self.dtype, device=x.device)
+            x = (x - mean) / std
+        x = self.patch_embed(x)
+        if self.cls_token is not None:
+            cls = self.cls_token.to(self.dtype).expand(x.shape[0], -1, -1)
+            x = torch.cat([cls, x], dim=1)
+        x = x + self._pos(x.shape[1], x.device)[None]
+        for blk in self.blocks:
+            x = blk(x)
+        if self.norm is not None:
+            x = self.norm(x)
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.forward_features(x)
