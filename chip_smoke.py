@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,13 +7,21 @@ Run from the repository root, on a machine with a card and nvcc. Each phase
 prints one JSON line, and the first failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi), the torch and
-   CUDA versions, and the build of every CUDA kernel from its source.
-2. kernel: K1 (`fused_attention_qkv`) against its plain version on bf16
-   inputs from a numpy seed at B=12, H=12, D=64 for N = 1568 (student),
-   1569 (teacher) and 77 (small, ragged), within PLAIN_TOL of the plain
-   version in bf16 and KERNEL_TOL of it in f32; then the kernel, the plain
-   version and `scaled_dot_product_attention` (timed as a yardstick only,
-   the port never calls it) timed with CUDA events.
+   CUDA versions, and the build of every CUDA kernel from its source (one
+   nvcc each, all at once) with ptxas' registers, shared memory and spills.
+2. kernel: on bf16 inputs from a numpy seed at B=12, H=12, D=64,
+   - K1-fwd (`fused_attention_qkv`, no stats) at N = 1568 (student), 1569
+     (teacher) and 77 (small, ragged), within PLAIN_TOL of the plain
+     version in bf16 and KERNEL_TOL of it in f32;
+   - K1-fwd stats (`attention_qkv_fwd_stats`) at N = 1568 and 77: o within
+     KERNEL_TOL, m within STATS_M_TOL and l within STATS_L_TOL of the plain
+     version in bf16 and in f32;
+   - K1-bwd (`attention_qkv_bwd`, dO ~ N(0, 1), o, m, l from the stats
+     kernel) at N = 1568, 1569 and 77: dq, dk, dv each within BWD_TOL of
+     the plain version on the same inputs and of the f32 gradient;
+   and at N = 1568 (and 1569 for K1-fwd) each kernel, its plain version and
+   `scaled_dot_product_attention` (forward, or forward + backward; timed
+   as a yardstick only, the port never calls it) timed with CUDA events.
 3. slice: the flagship SlotViT-B (ViT-B/16 on 16x224x224 clips, 8 tied
    agg rounds over 2 slots, 400+365 head, bf16, fused attention, patchify
    embed) and the CLS scene teacher, random weights from a seed, through
@@ -21,8 +29,20 @@ prints one JSON line, and the first failure exits non-zero:
    batches of 12 clips. The kernels' launch counts are zeroed just before
    and read just after; one batch then goes through the same weights with
    `fused_attention=False` and the two are held to SLICE_TOL.
-4. throughput: both protocols again over THROUGHPUT_BATCHES batches (the
-   3 clip batches in turn), timed on the host clock as clips per second.
+4. throughput: both eval protocols again over THROUGHPUT_BATCHES batches
+   (the 3 clip batches in turn), timed on the host clock as clips/s.
+5. train: the flagship slot train step as `bench.py:87-115` builds it
+   (that student and teacher, AdamW lr 5e-4 over 1000 steps with 10 of
+   warmup, the KL slot loss, FAME with beta 0.5 and prob_aug 0.8) on 12
+   synthetic clips: TRAIN_STEPS steps with the launch counts zeroed just
+   before and read just after (12 K1-fwd in the teacher, 12 K1-fwd stats
+   and 12 K1-bwd in the student per step), finite metrics, parameters
+   changed; then TRAIN_WINDOW steps timed on the host clock, and
+   PROFILE_STEPS more under `torch.profiler` (`train_profile`: device busy
+   and idle share, device time by kernel class and the top kernels).
+6. train_vs_plain: one micro-batch of 2 clips with fixed FAME draws
+   through the same weights with fused and with plain attention; the loss
+   and three parameters' gradients held to TRAIN_TOL.
 
 Then one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 Exits non-zero, printing no result, without CUDA or without the port.
@@ -62,15 +82,53 @@ KERNEL_TOL = 0.04
 # and itself errs by up to ~0.14 RMS against f32; the kernel is held to
 # PLAIN_TOL of it, which catches a wrong tile, row or head (O(1) RMS).
 PLAIN_TOL = 0.25
+# K1 stats: m and l held relative to their RMS against the plain version
+# in f32. m is a max of f32 logits (~1e-7 relative); l sums bf16-rounded
+# exponentials, ~3e-4 (N=1568) to ~1e-3 (N=77) of its RMS in a CPU
+# emulation, while zero-filled ragged keys left in the softmax move it by
+# 0.04 (N=1568) to 0.9 (N=77).
+STATS_M_TOL = 1e-4
+STATS_L_TOL = 5e-3
+# K1-bwd: each of dq, dk, dv held to BWD_TOL of its f32 RMS, against the
+# plain version on the same bf16 inputs and against the f32 gradient. The
+# kernel rounds t, e, q scale / l, dO / l and the outputs to bf16. The plain
+# version, which rounds at the same places, reads up to 0.091 RMS against
+# f32 at B=12, H=12 (its largest error over 144 heads; 0.06 at B=1, H=6 in
+# the CPU emulation), the kernel 0.023-0.046 against the plain version. A
+# kernel that leaves the ragged keys and rows of its last tiles unmasked
+# reads 2.7-5.9 (`tests/test_torch_attention.py`).
+BWD_TOL = 0.2
 # Fused vs plain model, both bf16: per layer the two attentions differ by
 # bf16 rounding (above), carried through 12 residual blocks and 8 agg
 # rounds; held relative to the plain output's largest magnitude.
 SLICE_TOL = 5e-2
+# Fused vs plain train step on the same micro-batch, both bf16: the loss
+# held to TRAIN_LOSS_TOL of its value, each watched gradient to TRAIN_TOL of
+# the plain gradient's largest magnitude (bf16 attention rounding carried
+# through 12 blocks forward and back).
+TRAIN_LOSS_TOL = 2e-2
+TRAIN_TOL = 0.1
+TRAIN_WATCH = ("blocks.0.attn.qkv.weight", "blocks.11.mlp.fc2.weight", "agg_block.latents")
+TRAIN_STEPS = 3
+TRAIN_WINDOW = 20
+PROFILE_STEPS = 2
+# kernel classes of the profile, by substring of the kernel's name, first match
+KERNEL_CLASSES = (
+    ("K1 (port's attention kernels)", ("attention_qkv", "rowdot_kernel")),
+    ("GEMM (cuBLAS)", ("nvjet", "gemm", "sm90_xmma", "cutlass", "gemv", "splitKreduce")),
+    ("copy", ("Memcpy", "Memset", "copy_", "CatArrayBatched")),
+    ("reduction", ("reduce_kernel", "Reduce", "softmax", "norm")),
+    ("elementwise", ("elementwise", "vectorized")),
+)
 N_BATCHES = 3
 # ~4 s of validation and ~8 s of final_test at the rates measured so far
 THROUGHPUT_BATCHES = 120
 CLIPS = (B, 16, 224, 224, 3)
 NUM_CLASSES, NUM_SCENE_CLASSES = 400, 365
+SLOT_KW = dict(num_classes=NUM_CLASSES, num_scene_classes=NUM_SCENE_CLASSES, num_latents=2, agg_depth=8,
+               agg_weights_tie=True, dtype=torch.bfloat16, patch_embed_mode="patchify")
+TEACHER_KW = dict(num_classes=NUM_SCENE_CLASSES, use_mean_pooling=False, dtype=torch.bfloat16,
+                  patch_embed_mode="patchify")
 
 
 def emit(obj) -> None:
@@ -80,6 +138,13 @@ def emit(obj) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def bwd_errors(got, want, exact):
+    """Max abs error of dq, dk and dv in `got` against `want`, each over the
+    RMS of that component of `exact` (all [B, N, 3*H*D])."""
+    return [(g.float() - w.float()).abs().max().item() / e.float().square().mean().sqrt().item()
+            for g, w, e in zip(got.chunk(3, -1), want.chunk(3, -1), exact.chunk(3, -1))]
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -104,7 +169,7 @@ def phase_device(build):
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     t0 = time.perf_counter()
-    report = {name: build.build(name) for name in build.SOURCES}
+    report = build.build_all()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in r["ptxas"].splitlines() if "Used" in ln or "spill" in ln]
              for name, r in report.items()}
@@ -114,11 +179,24 @@ def phase_device(build):
     return card
 
 
-def attention_bound(N: int):
-    flops = 4 * B * H * N * N * D
-    nbytes = (B * N * 3 * H * D + B * N * H * D) * 2
+def _bound(flops: int, nbytes: int):
     t_ops, t_bytes = flops / BF16_PEAK * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops, nbytes
+
+
+def attention_bound(N: int, stats: bool = False):
+    """Forward: 4BHN^2D operations; q/k/v read, o (and m, l) written once."""
+    return _bound(4 * B * H * N * N * D, (B * N * 3 * H * D + B * N * H * D) * 2 + (2 * B * H * N * 4 if stats else 0))
+
+
+def attention_bwd_bound(N: int):
+    """Backward: five N x N x D products, 10BHN^2D operations; qkv, o, dO,
+    m, l read once, dqkv written once."""
+    return _bound(10 * B * H * N * N * D, (2 * B * N * 3 * H * D + 2 * B * N * H * D) * 2 + 2 * B * H * N * 4)
+
+
+def _rms(t) -> float:
+    return t.float().square().mean().sqrt().item()
 
 
 def phase_kernel(attn):
@@ -162,6 +240,97 @@ def phase_kernel(attn):
     return worst, timing
 
 
+def _inputs(N: int, seed: int):
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    qkv = torch.from_numpy(rng.standard_normal((B, N, 3 * H * D), dtype=np.float32)).to(dev, torch.bfloat16)
+    do = torch.from_numpy(rng.standard_normal((B, N, H * D), dtype=np.float32)).to(dev, torch.bfloat16)
+    return qkv, do
+
+
+def phase_kernel_stats(attn):
+    worst, timing = 0.0, None
+    for N in (1568, 77):
+        qkv, _ = _inputs(N, 10 + N)
+        o, m, l = attn.attention_qkv_fwd_stats(qkv, H, SCALE)
+        torch.cuda.synchronize()
+        row = {"phase": "kernel", "kernel": "K1-fwd-stats", "N": N}
+        ok = bool(torch.isfinite(o).all().item() and torch.isfinite(m).all().item() and torch.isfinite(l).all().item())
+        for label, src in (("plain", qkv), ("f32", qkv.float())):
+            po, pm, pl = attn.attention_qkv_fwd_stats_reference(src, H, SCALE)
+            errs = {"o": (o.float() - po.float()).abs().max().item() / _rms(po),
+                    "m": (m - pm).abs().max().item() / _rms(pm),
+                    "l": (l - pl).abs().max().item() / _rms(pl)}
+            row[f"err_rms_vs_{label}"] = errs
+            ok &= errs["o"] <= KERNEL_TOL and errs["m"] <= STATS_M_TOL and errs["l"] <= STATS_L_TOL
+            if label == "plain":
+                row["max_abs_err"] = (o.float() - po.float()).abs().max().item()
+                worst = max(worst, row["max_abs_err"])
+            del po, pm, pl
+        row["tol_rms"] = {"o": KERNEL_TOL, "m": STATS_M_TOL, "l": STATS_L_TOL}
+        if N == 1568:
+            q, k, v = qkv.view(B, N, 3, H, D).permute(2, 0, 3, 1, 4)
+            bound_ms, bound_by, flops, nbytes = attention_bound(N, stats=True)
+            row.update(
+                ms=time_ms(lambda: attn.attention_qkv_fwd_stats(qkv, H, SCALE), 20),
+                plain_ms=time_ms(lambda: attn.attention_qkv_fwd_stats_reference(qkv, H, SCALE), 5),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=SCALE), 20),
+                bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes)
+            row["tflops"] = flops / row["ms"] / 1e9
+            timing = row
+        emit(row)
+        if not ok:
+            fail(f"K1-fwd stats at N={N} beyond its limits: {row}")
+        del qkv, o, m, l
+    torch.cuda.empty_cache()
+    return worst, timing
+
+
+def phase_kernel_bwd(attn):
+    worst, timing = 0.0, None
+    for N in (1568, 1569, 77):
+        qkv, do = _inputs(N, 20 + N)
+        o, m, l = attn.attention_qkv_fwd_stats(qkv, H, SCALE)
+        got = attn.attention_qkv_bwd(qkv, o, do, m, l, H, SCALE)
+        torch.cuda.synchronize()
+        plain = attn.attention_qkv_bwd_reference(qkv, o, do, m, l, H, SCALE)
+        eo, em, el = attn.attention_qkv_fwd_stats_reference(qkv.float(), H, SCALE)
+        exact = attn.attention_qkv_bwd_reference(qkv.float(), eo, do.float(), em, el, H, SCALE)
+        del eo, em, el
+        row = {"phase": "kernel", "kernel": "K1-bwd", "N": N, "tol_rms": BWD_TOL,
+               "err_rms_vs_plain": bwd_errors(got, plain, exact), "err_rms_vs_f32": bwd_errors(got, exact, exact),
+               "plain_err_rms_vs_f32": bwd_errors(plain, exact, exact),
+               "max_abs_err": (got.float() - plain.float()).abs().max().item(),
+               "finite": bool(torch.isfinite(got).all().item())}
+        worst = max(worst, row["max_abs_err"])
+        del plain, exact
+        if N == 1568:
+            torch.cuda.empty_cache()
+            heads = [t.detach().requires_grad_() for t in qkv.view(B, N, 3, H, D).permute(2, 0, 3, 1, 4)]
+            do_h = do.view(B, N, H, D).transpose(1, 2)
+
+            def sdpa_fwd_bwd():
+                out = F.scaled_dot_product_attention(*heads, scale=SCALE)
+                torch.autograd.grad(out, heads, do_h)
+
+            bound_ms, bound_by, flops, nbytes = attention_bwd_bound(N)
+            row.update(
+                ms=time_ms(lambda: attn.attention_qkv_bwd(qkv, o, do, m, l, H, SCALE), 20),
+                plain_ms=time_ms(lambda: attn.attention_qkv_bwd_reference(qkv, o, do, m, l, H, SCALE), 3),
+                library_ms=time_ms(sdpa_fwd_bwd, 20), library_call="scaled_dot_product_attention forward + backward",
+                bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
+                exp_bound_ms=B * H * N * N / SFU_PER_S * 1e3)
+            row["tflops"] = flops / row["ms"] / 1e9
+            timing = row
+            del heads, do_h
+        emit(row)
+        if not row["finite"] or max(row["err_rms_vs_plain"] + row["err_rms_vs_f32"]) > BWD_TOL:
+            fail(f"K1-bwd at N={N} beyond {BWD_TOL} of the f32 RMS: {row}")
+        del qkv, do, o, m, l, got
+        torch.cuda.empty_cache()
+    return worst, timing
+
+
 def synthetic_batches():
     rng = np.random.default_rng(0)
     batches = []
@@ -182,11 +351,8 @@ def phase_slice(attn, card):
     from devias_tpu_torch.train import make_eval_step
 
     t0 = time.perf_counter()
-    slot_kw = dict(num_classes=NUM_CLASSES, num_scene_classes=NUM_SCENE_CLASSES, num_latents=2, agg_depth=8,
-                   agg_weights_tie=True, dtype=torch.bfloat16, patch_embed_mode="patchify")
-    student = create_model("slot_vit_base_patch16_224", seed=0, fused_attention=True, **slot_kw)
-    teacher = create_model("vit_base_patch16_224", seed=1, num_classes=NUM_SCENE_CLASSES, use_mean_pooling=False,
-                           dtype=torch.bfloat16, fused_attention=True, patch_embed_mode="patchify")
+    student = create_model("slot_vit_base_patch16_224", seed=0, fused_attention=True, **SLOT_KW)
+    teacher = create_model("vit_base_patch16_224", seed=1, fused_attention=True, **TEACHER_KW)
     batches = synthetic_batches()
     setup_s = time.perf_counter() - t0
 
@@ -203,13 +369,14 @@ def phase_slice(attn, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    attn.fused_attention_qkv.launches = 0
+    attn.reset_launch_counts()
     val = validation_one_epoch(batches, action_step, B)
     val_launches = attn.fused_attention_qkv.launches
     with tempfile.TemporaryDirectory() as out_dir:
         test = final_test(batches, scene_fn, B, out_dir, scene_label_fn=teacher_step)
         torch.cuda.synchronize()
         launches = attn.fused_attention_qkv.launches
+        counts = attn.launch_counts()
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         rows = parse_result_file(os.path.join(out_dir, "0.txt"))  # raises on non-finite logits
         merged = merge_results(out_dir, 1)
@@ -220,11 +387,13 @@ def phase_slice(attn, card):
     emit(row)
     if val_launches != 12 * N_BATCHES or launches - val_launches != 24 * N_BATCHES:
         fail(f"K1 launches {row['launches']}: want 12 per batch in validation, 24 per batch in final_test")
+    if counts["K1-fwd-stats"] or counts["K1-bwd"]:
+        fail(f"the eval path launched training kernels: {counts}")
     if len(rows) != N_BATCHES * B or not all(np.isfinite(v) for v in (*val.values(), *test.values(), *merged)):
         fail(f"protocol results wrong: {row}")
 
     # the same weights with the plain attention, on one batch
-    plain = create_model("slot_vit_base_patch16_224", seed=0, fused_attention=False, **slot_kw)
+    plain = create_model("slot_vit_base_patch16_224", seed=0, fused_attention=False, **SLOT_KW)
     plain.load_state_dict(student.state_dict())
     videos = batches[0]["videos"]
     fused_out = make_eval_step(student)(videos)
@@ -265,6 +434,161 @@ def phase_slice(attn, card):
     return launches
 
 
+def vit_flops_per_clip(N: int, C: int = 768, depth: int = 12) -> float:
+    """Forward operations of a ViT-B's blocks on one clip: qkv, proj and
+    the MLP (24 N C^2) and the two attention products (4 N^2 C) per block.
+    The patch embed, the agg block and the heads add about 1 %."""
+    return depth * (24 * N * C * C + 4 * N * N * C)
+
+
+def profile_breakdown(fn, n: int) -> dict:
+    """Run fn() n times under torch.profiler. Per call: host-clock ms, the
+    device's busy ms (union of its kernel and copy intervals) and idle
+    share, device ms by KERNEL_CLASSES, and the ten kernels with the most
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    spans, by_name = [], {}
+    for e in prof.events():
+        # GPU-side annotation ranges (`Optimizer.step#...`) span kernels
+        # counted on their own
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        total, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (total + (end - start) / 1e3, count + 1)
+    busy_us, reach = 0.0, None
+    for start, end in sorted(spans):
+        if reach is None or start > reach:
+            busy_us += end - start
+            reach = end
+        elif end > reach:
+            busy_us += end - reach
+            reach = end
+    classes = {label: 0.0 for label, _ in KERNEL_CLASSES}
+    classes["other"] = 0.0
+    for name, (ms, _) in by_name.items():
+        label = next((lb for lb, keys in KERNEL_CLASSES if any(k in name for k in keys)), "other")
+        classes[label] += ms / n
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    busy_ms = busy_us / 1e3 / n
+    return {"calls": n, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms if spans else None,
+            "device_ms_by_class": classes,
+            "top_kernels": [{"name": name[:120], "ms": ms / n, "launches": c / n} for name, (ms, c) in top]}
+
+
+def _train_parts():
+    from devias_tpu_torch.aug import FAMEConfig
+    from devias_tpu_torch.losses import SlotLossConfig
+    from devias_tpu_torch.train import TrainStepConfig
+
+    return SlotLossConfig(NUM_CLASSES, NUM_SCENE_CLASSES), TrainStepConfig(
+        use_fame=True, fame=FAMEConfig(beta=0.5, prob_aug=0.8))
+
+
+def phase_train(attn, card):
+    from devias_tpu_torch.nn import create_model
+    from devias_tpu_torch.train import OptimConfig, TrainState, make_optimizer, make_slot_train_step
+
+    t0 = time.perf_counter()
+    student = create_model("slot_vit_base_patch16_224", seed=0, fused_attention=True, **SLOT_KW)
+    teacher = create_model("vit_base_patch16_224", seed=1, fused_attention=True, **TEACHER_KW)
+    opt, lr_fn = make_optimizer(student, OptimConfig(lr=5e-4, total_steps=1000, warmup_steps=10))
+    state = TrainState.create(student, opt)
+    loss_cfg, step_cfg = _train_parts()
+    step = make_slot_train_step(student, teacher, opt, loss_cfg, step_cfg, lr_fn)
+    rng = np.random.default_rng(0)
+    batch = {"videos": rng.standard_normal(CLIPS, dtype=np.float32), "labels": rng.integers(0, NUM_CLASSES, size=B)}
+    params = dict(student.named_parameters())
+    before = {n: params[n].detach().clone() for n in TRAIN_WATCH}
+    setup_s = time.perf_counter() - t0
+
+    attn.reset_launch_counts()
+    t0 = time.perf_counter()
+    history = [step(state, batch, host_metrics=True) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = attn.launch_counts()
+    changed = {n: (params[n].detach() - before[n]).abs().max().item() for n in TRAIN_WATCH}
+    finite = all(np.isfinite(v) for m in history for v in m.values())
+    emit({"phase": "train", "card": card, "steps": TRAIN_STEPS, "clips_per_step": B, "setup_s": setup_s,
+          "first_steps_s": first_s, "metrics": history, "launches": counts, "param_max_change": changed,
+          "state_step": state.step})
+    want = {name: 12 * TRAIN_STEPS for name in counts}
+    if counts != want:
+        fail(f"train launches {counts}; want {want} (12 teacher K1-fwd, 12 student K1-fwd stats and K1-bwd per step)")
+    if not finite or state.step != TRAIN_STEPS or not all(v > 0 for v in changed.values()):
+        fail(f"train steps wrong: finite={finite} step={state.step} changes={changed}")
+    if set(history[0]) != {"loss", "action_loss", "scene_loss", "cosine_loss", "mask_prediction_loss",
+                           "mask_distill_loss", "class_acc", "grad_norm", "lr"}:
+        fail(f"train metrics {sorted(history[0])}")
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WINDOW):
+        metrics = step(state, batch)
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    ms = window_s / TRAIN_WINDOW * 1e3
+    flops = B * (3 * vit_flops_per_clip(1568) + vit_flops_per_clip(1569))
+    emit({"phase": "train_throughput", "card": card, "steps": TRAIN_WINDOW, "clips_per_step": B,
+          "window_s": window_s, "ms_per_step": ms, "clips_per_s": TRAIN_WINDOW * B / window_s,
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "loss": float(metrics["loss"]),
+          "tflop_per_step": flops / 1e12, "share_of_bf16_peak": flops / (ms * 1e-3) / BF16_PEAK})
+    emit({"phase": "train_profile", "card": card, **profile_breakdown(lambda: step(state, batch), PROFILE_STEPS)})
+    del student, teacher, opt, state, step
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_vs_plain(card):
+    """One micro-batch of 2 clips through the step's loss with fused and
+    with plain attention on the same weights and FAME draws."""
+    from devias_tpu_torch.nn import create_model
+    from devias_tpu_torch.train.step import slot_loss
+
+    loss_cfg, step_cfg = _train_parts()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    videos = torch.from_numpy(rng.standard_normal((2,) + CLIPS[1:], dtype=np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, NUM_CLASSES, size=2)).to(dev)
+    draws = {"perm": torch.tensor([1, 0], device=dev), "keep": torch.tensor([True, True], device=dev)}
+    out = {}
+    for fused in (True, False):
+        student = create_model("slot_vit_base_patch16_224", seed=0, fused_attention=fused, **SLOT_KW).train()
+        teacher = create_model("vit_base_patch16_224", seed=1, fused_attention=fused, **TEACHER_KW)
+        total, _ = slot_loss(student, teacher, videos, labels, loss_cfg, step_cfg, draws=draws)
+        total.backward()
+        params = dict(student.named_parameters())
+        out[fused] = (total.item(), {n: params[n].grad.float().clone() for n in TRAIN_WATCH})
+        del student, teacher, total, params
+        torch.cuda.empty_cache()
+    (loss_f, grads_f), (loss_p, grads_p) = out[True], out[False]
+    row = {"phase": "train_vs_plain", "card": card, "clips": 2, "loss_fused": loss_f, "loss_plain": loss_p,
+           "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_TOL, "grads": {}}
+    ok = np.isfinite(loss_f) and abs(loss_f - loss_p) <= TRAIN_LOSS_TOL * abs(loss_p)
+    for n in TRAIN_WATCH:
+        err = (grads_f[n] - grads_p[n]).abs().max().item()
+        ref = grads_p[n].abs().max().item()
+        finite = bool(torch.isfinite(grads_f[n]).all().item())
+        row["grads"][n] = {"max_abs_err": err, "max_abs_plain": ref, "finite": finite}
+        ok &= finite and ref > 0 and err <= TRAIN_TOL * ref
+    emit(row)
+    if not ok:
+        fail("fused and plain train steps disagree beyond their limits")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -277,18 +601,26 @@ def main() -> int:
         return 1
 
     card = phase_device(build)
-    worst_err, timing = phase_kernel(attn)
-    launches = phase_slice(attn, card)
+    fwd_err, fwd_timing = phase_kernel(attn)
+    stats_err, stats_timing = phase_kernel_stats(attn)
+    bwd_err, bwd_timing = phase_kernel_bwd(attn)
+    eval_launches = phase_slice(attn, card)
+    train_launches = phase_train(attn, card)
+    phase_train_vs_plain(card)
 
-    t = timing[1568]
+    rows = (
+        ("K1-fwd fused_attention_qkv", "attention_fwd.cu", "devias_tpu/kernels/attention.py:377",
+         eval_launches + train_launches["K1-fwd"], fwd_err, fwd_timing[1568]),
+        ("K1-fwd-stats attention_qkv_fwd_stats", "attention_fwd.cu", "devias_tpu/kernels/attention.py:377",
+         train_launches["K1-fwd-stats"], stats_err, stats_timing),
+        ("K1-bwd attention_qkv_bwd", "attention_bwd.cu", "devias_tpu/kernels/attention.py:426",
+         train_launches["K1-bwd"], bwd_err, bwd_timing),
+    )
     emit({"kernels": [{
-        "name": "K1-fwd fused_attention_qkv", "route": "cuda",
-        "source": "devias_tpu_torch/kernels/csrc/attention_fwd.cu",
-        "replaces": "devias_tpu/kernels/attention.py:377",
-        "launches": launches, "max_abs_err": worst_err,
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"],
-    }]})
+        "name": name, "route": "cuda", "source": f"devias_tpu_torch/kernels/csrc/{src}", "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    } for name, src, replaces, launches, err, t in rows]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -6,12 +6,14 @@ carry: Dense kernels [in, out] become Linear weights [out, in], LayerNorm
 scale becomes weight, the patch-embed kernel [t*p*p*C, D] becomes the
 Conv3d layout [D, C, t, p, p], and a tied agg block's one unique layer is
 written at every round index. `load_jax_params` loads it with
-`strict=True`.
+`strict=True`. `param_name_map` names the flax path of each port
+parameter, so per-parameter rules (lr scales, decay masks) and values can
+be held against the JAX trees.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -117,3 +119,70 @@ def load_jax_params(model: nn.Module, params: Dict[str, Any], model_kind: str,
     model.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in sd.items()},
                           strict=True)
     return model
+
+
+_LN_MODULES = ("norm1", "norm2", "norm", "norm_context", "fc_norm")
+_AGG_MODULES = {("0", "norm"): ("norm_q",), ("0", "norm_context"): ("norm_context",),
+                ("0", "fn", "to_q"): ("cross_attn", "to_q"), ("0", "fn", "to_k"): ("cross_attn", "to_k"),
+                ("0", "fn", "to_v"): ("cross_attn", "to_v"), ("0", "fn", "to_out", "0"): ("cross_attn", "to_out"),
+                ("2", "norm"): ("norm_ff",), ("2", "fn", "net", "0"): ("ff_fc1",),
+                ("2", "fn", "net", "3"): ("ff_fc2",)}
+_DECODER = {"0": "fc1", "2": "fc2", "4": "fc3"}
+
+
+def _leaf(module: Tuple[str, ...], leaf: str, norm: bool) -> Tuple[str, ...]:
+    if leaf == "weight":
+        return module + ("scale" if norm else "kernel",)
+    return module + (leaf,)
+
+
+def flax_path(name: str, model_kind: str, agg_weights_tie: bool = True) -> Tuple[str, ...]:
+    """The flax param path of the port parameter `name` of a `slot` or
+    `plain` model."""
+    if model_kind not in MODEL_KINDS:
+        raise ValueError(f"unknown model_kind {model_kind!r}; expected one of {MODEL_KINDS}")
+    *mod, leaf = name.split(".")
+    if mod[:1] == ["patch_embed"]:
+        return ("backbone", "patch_embed", "kernel" if leaf == "weight" else leaf)
+    if not mod and leaf == "cls_token":
+        return ("backbone", "cls_token")
+    if mod[:1] == ["blocks"]:
+        block = ("backbone", f"blocks_{mod[1]}")
+        rest = tuple(mod[2:])
+        if rest == ("attn", "qkv"):
+            return block + ("attn", "qkv_kernel")
+        if rest == ("attn",):
+            return block + ("attn", leaf)
+        return _leaf(block + rest, leaf, rest[-1] in _LN_MODULES)
+    if mod == ["norm"]:
+        return _leaf(("backbone", "norm"), leaf, True)
+    if mod[:1] == ["agg_block"]:
+        if leaf == "latents":
+            return ("agg_block", "latents")
+        if mod[1] == "last_layer":
+            return _leaf(("agg_block", "last_norm"), leaf, True)
+        layer = ("agg_block", f"layers_{0 if agg_weights_tie else int(mod[2])}")
+        sub = _AGG_MODULES[tuple(mod[3:])]
+        return _leaf(layer + sub, leaf, "norm" in sub[-1])
+    if mod[:2] == ["mask_predictor", "decoder"]:
+        return _leaf(("mask_predictor", _DECODER[mod[2]]), leaf, False)
+    if mod == ["fc_norm"]:
+        return _leaf(("fc_norm",), leaf, True)
+    if mod[:1] == ["head"]:
+        return _leaf(tuple(mod), leaf, False)
+    raise ValueError(f"no flax path for port parameter {name!r}")
+
+
+def param_name_map(model_kind: str, agg_depth: int, names: Iterable[str],
+                   agg_weights_tie: bool = True) -> Dict[str, Tuple[str, ...]]:
+    """Port parameter name -> flax param path for `names` (a model's
+    `named_parameters()` or `state_dict()` keys). A tied agg block maps
+    every round index to its one flax layer; `agg_depth` bounds the round
+    indices."""
+    out = {}
+    for name in names:
+        parts = name.split(".")
+        if parts[:2] == ["agg_block", "layers"] and int(parts[2]) >= agg_depth:
+            raise ValueError(f"{name}: round index beyond agg_depth {agg_depth}")
+        out[name] = flax_path(name, model_kind, agg_weights_tie)
+    return out

@@ -5,6 +5,7 @@ from __future__ import annotations
 from typing import Union
 
 import torch
+from torch import nn
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -18,4 +19,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run the plain PyTorch path on the CPU"
         )
     return dev
+
+
+def require_on(model: nn.Module, dev: torch.device, what: str = "model") -> None:
+    """Raise unless `model`'s parameters lie on `dev`'s device type."""
+    where = next((p.device for p in model.parameters()), None)
+    if where is not None and where.type != dev.type:
+        raise ValueError(f"{what} is on {where}, the caller asked for {dev}")
 

@@ -8,7 +8,10 @@
 
 Both extend `VideoViT`, so the backbone's parameters sit at the top of the
 module tree (`patch_embed.*`, `blocks.*`, `norm.*`), as in the reference
-layout. Outputs are dicts of tensors with the JAX package's keys.
+layout. Outputs are dicts of tensors with the JAX package's keys. In
+`train()` mode `fc_drop_rate` dropout applies to the slots (the CLS or
+pooled token) before the head, with the backbone's dropout and drop-path;
+`forward` takes the `torch.Generator` they draw from.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from torch import nn
 from devias_tpu_torch.device import DeviceLike, resolve_device
 from devias_tpu_torch.nn.agg import AggregationBlock, LayerNorm
 from devias_tpu_torch.nn.heads import MaskPredictor, MLPHead
-from devias_tpu_torch.nn.vit import PATCH_SIZE, Linear, VideoViT, init_weights
+from devias_tpu_torch.nn.vit import PATCH_SIZE, Linear, VideoViT, dropout, init_weights
 
 
 def select_slots_by_head(slots: torch.Tensor, slots_head: torch.Tensor, num_classes: int,
@@ -78,6 +81,7 @@ class SlotViT(VideoViT):
         self.num_classes = num_classes
         self.num_scene_classes = num_scene_classes
         self.img_size = img_size
+        self.fc_drop_rate = fc_drop_rate
         self.slot_matching_method = slot_matching_method
         self.agg_block = AggregationBlock(num_latents, embed_dim, agg_depth, agg_weights_tie, dtype=dtype)
         total = num_classes + num_scene_classes
@@ -87,12 +91,12 @@ class SlotViT(VideoViT):
             self.head = MLPHead(embed_dim, 512, total, out_init_std=0.02 * init_scale)
         self.mask_predictor = MaskPredictor(embed_dim, (img_size // PATCH_SIZE) ** 2)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         if x.shape[2] != self.img_size or x.shape[3] != self.img_size:
             raise ValueError(f"clips must be {self.img_size}x{self.img_size}; got {tuple(x.shape)}")
-        tokens = self.forward_features(x)
+        tokens = self.forward_features(x, generator)
         slots, attn = self.agg_block(tokens)
-        slots_head = self.head(slots)
+        slots_head = self.head(dropout(slots, self.fc_drop_rate, self.training, generator))
         out = {
             "slots": slots,
             "slots_head": slots_head,
@@ -126,13 +130,15 @@ class PlainViT(VideoViT):
                  dtype: torch.dtype = torch.float32):
         super().__init__(use_cls_token=not use_mean_pooling, final_norm=not use_mean_pooling,
                          **_backbone_kwargs(locals()))
+        self.fc_drop_rate = fc_drop_rate
         self.fc_norm = LayerNorm(embed_dim, 1e-6, dtype) if use_mean_pooling else None
         self.head = Linear(embed_dim, num_classes, init_std=0.02 * init_scale)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        tokens = self.forward_features(x)
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        tokens = self.forward_features(x, generator)
         token = tokens[:, 0] if self.fc_norm is None else self.fc_norm(tokens.mean(dim=1))
-        return {"token": token, "logits": self.head(token)}
+        return {"token": token,
+                "logits": self.head(dropout(token, self.fc_drop_rate, self.training, generator))}
 
 
 _REGISTRY = {

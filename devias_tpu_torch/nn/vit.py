@@ -5,8 +5,16 @@ are float32 and cast to the compute dtype where they are used, as the JAX
 package does; LayerNorm scales and biases stay float32. The module tree
 follows the reference key layout (`patch_embed.proj.weight`,
 `blocks.{i}.attn.qkv.weight`, ...), so `load_state_dict(strict=True)`
-takes what `ckpt/from_jax.py` produces. Eval forward only: drop-path and
-dropout rates are accepted and do nothing.
+takes what `ckpt/from_jax.py` produces.
+
+Training mode (`module.train()`) enables dropout after the position
+embedding, after `proj` and after `fc2`, and drop-path in timm semantics (a per-sample Bernoulli keep scaled by 1/keep,
+rates rising linearly over the blocks). Every draw comes from the
+`torch.Generator` passed to `forward`; in `eval()` or at rate 0 they are
+no-ops. Gradients reach the float32 master weights through the casts at
+use; `FastLayerNorm`'s gradient is autograd's of its forward, the same
+function as the JAX package's hand-written VJP (which exists to save TPU
+memory).
 """
 
 from __future__ import annotations
@@ -47,6 +55,32 @@ def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> No
             t.zero_()
         else:
             nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+
+
+def _keep_mask(shape, keep: float, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    if generator is None:
+        raise ValueError("dropout and drop-path in training mode need a torch.Generator")
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `nn.Dropout`: keep each element with probability 1 - rate and
+    scale kept ones by 1/(1 - rate); identity in eval or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    return torch.where(_keep_mask(x.shape, keep, generator, x.device), x / keep, torch.zeros_like(x))
+
+
+def drop_path(x: torch.Tensor, rate: float, training: bool, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Per-sample stochastic depth (`devias_tpu/nn/vit.py:46-58`, timm
+    semantics): keep a whole sample with probability 1 - rate, scaled by
+    1/(1 - rate); identity in eval or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = _keep_mask((x.shape[0],) + (1,) * (x.dim() - 1), keep, generator, x.device)
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
@@ -102,30 +136,35 @@ class FastLayerNorm(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU -> fc2. GELU is the tanh form when compute is bf16 and
-    exact erf otherwise; `gelu_approx` True/False overrides."""
+    """fc1 -> GELU -> fc2 -> dropout. GELU is the tanh form when compute is
+    bf16 and exact erf otherwise; `gelu_approx` True/False overrides."""
 
     def __init__(self, dim: int, hidden_dim: int, gelu_approx: Optional[bool] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, drop: float = 0.0):
         super().__init__()
+        self.drop = drop
         self.fc1 = Linear(dim, hidden_dim)
         self.fc2 = Linear(hidden_dim, dim)
         self.approx = dtype == torch.bfloat16 if gelu_approx is None else gelu_approx
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.fc1(x.to(self.dtype))
         x = F.gelu(x, approximate="tanh" if self.approx else "none")
-        return self.fc2(x)
+        return dropout(self.fc2(x), self.drop, self.training, generator)
 
 
 class Attention(nn.Module):
     """Multi-head self-attention with one qkv weight, learnable q and v
     biases and a zero k bias. `fused=True` calls K1 on the [B, N, 3C]
-    projection with no head transposes; otherwise the plain einsum path."""
+    projection with no head transposes; otherwise the plain einsum path.
+    Attention-probability dropout in training is not ported and raises."""
 
-    def __init__(self, dim: int, num_heads: int, fused: bool = False, dtype: torch.dtype = torch.float32):
+    def __init__(self, dim: int, num_heads: int, fused: bool = False, dtype: torch.dtype = torch.float32,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
+        self.attn_drop = attn_drop
+        self.proj_drop = proj_drop
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
         self.fused = fused
@@ -139,27 +178,34 @@ class Attention(nn.Module):
         nn.init.zeros_(self.q_bias)
         nn.init.zeros_(self.v_bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
         qkv = self.qkv(x.to(self.dtype)) + bias.to(self.dtype)
+        if self.training and self.attn_drop > 0.0:
+            raise NotImplementedError("attention-probability dropout (attn_drop_rate > 0) is not ported")
         attend = fused_attention_qkv if self.fused else attention_qkv_reference
-        return self.proj(attend(qkv, self.num_heads, self.scale))
+        out = attend(qkv, self.num_heads, self.scale)
+        return dropout(self.proj(out), self.proj_drop, self.training, generator)
 
 
 class Block(nn.Module):
     """Pre-norm transformer block."""
 
     def __init__(self, dim: int, num_heads: int, fused_attention: bool = False, exact_gelu: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, drop: float = 0.0, attn_drop: float = 0.0,
+                 drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         self.norm1 = FastLayerNorm(dim, dtype)
-        self.attn = Attention(dim, num_heads, fused_attention, dtype)
+        self.attn = Attention(dim, num_heads, fused_attention, dtype, attn_drop, drop)
         self.norm2 = FastLayerNorm(dim, dtype)
-        self.mlp = Mlp(dim, MLP_RATIO * dim, False if exact_gelu else None, dtype)
+        self.mlp = Mlp(dim, MLP_RATIO * dim, False if exact_gelu else None, dtype, drop)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = self.attn(self.norm1(x), generator)
+        x = x + drop_path(y, self.drop_path_rate, self.training, generator)
+        y = self.mlp(self.norm2(x), generator)
+        return x + drop_path(y, self.drop_path_rate, self.training, generator)
 
 
 def patchify_video(x: torch.Tensor, tubelet: int = 2, patch: int = PATCH_SIZE) -> torch.Tensor:
@@ -215,8 +261,8 @@ class VideoViT(nn.Module):
     positions, `depth` blocks, final LayerNorm (skipped when
     `final_norm=False`). `use_cls_token` prepends a learned CLS token;
     `input_norm` applies the ImageNet normalisation on the device (uint8 or
-    [0, 1] clips). Dropout and drop-path rates are accepted for the JAX
-    package's signature and do nothing in this eval forward."""
+    [0, 1] clips). Block i's drop-path rate is linspace(0, drop_path_rate,
+    depth)[i]; `drop_rate` also applies after the position embedding."""
 
     def __init__(self, embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
@@ -228,10 +274,13 @@ class VideoViT(nn.Module):
         self.embed_dim = embed_dim
         self.input_norm = input_norm
         self.dtype = dtype
+        self.drop_rate = drop_rate
         self.patch_embed = PatchEmbed3D(embed_dim, tubelet_size, patch_embed_mode, dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim)) if use_cls_token else None
+        dpr = np.linspace(0.0, drop_path_rate, depth)
         self.blocks = nn.ModuleList([
-            Block(embed_dim, num_heads, fused_attention, exact_gelu, dtype) for _ in range(depth)])
+            Block(embed_dim, num_heads, fused_attention, exact_gelu, dtype, drop_rate, attn_drop_rate, float(dpr[i]))
+            for i in range(depth)])
         self.norm = FastLayerNorm(embed_dim, dtype) if final_norm else None
         self._pos_cache: Dict[Tuple[int, torch.device], torch.Tensor] = {}
 
@@ -246,7 +295,7 @@ class VideoViT(nn.Module):
             self._pos_cache[key] = torch.from_numpy(table).to(device=device, dtype=self.dtype)
         return self._pos_cache[key]
 
-    def forward_features(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_features(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.input_norm:
             if x.dtype == torch.uint8:
                 x = x.to(self.dtype) / 255.0
@@ -258,11 +307,12 @@ class VideoViT(nn.Module):
             cls = self.cls_token.to(self.dtype).expand(x.shape[0], -1, -1)
             x = torch.cat([cls, x], dim=1)
         x = x + self._pos(x.shape[1], x.device)[None]
+        x = dropout(x, self.drop_rate, self.training, generator)
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, generator)
         if self.norm is not None:
             x = self.norm(x)
         return x
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.forward_features(x)
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.forward_features(x, generator)

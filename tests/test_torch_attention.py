@@ -1,15 +1,29 @@
-"""K1 forward in the PyTorch port: the plain version against the JAX
-package's Pallas kernel (interpret mode), and the wrapper's dispatch rules.
-Both sides take the same numpy inputs in float32; the tolerance is float32
-rounding over a D-term dot and an N-term softmax sum."""
+"""K1 in the PyTorch port: the plain versions of the forward (with and
+without stats) and of the backward against the JAX package's Pallas
+kernels (interpret mode) and `jax.vjp`, the autograd Function's wiring on
+the CPU, and the smoke's tolerances against emulated kernels. Both sides
+take the same numpy inputs in float32; the tolerances are float32 rounding
+over D-term dots and N-term sums."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from devias_tpu.kernels.attention import _fwd_call_qkv
 from devias_tpu.kernels.attention import fused_attention_qkv as jax_fused_attention_qkv
-from devias_tpu_torch.kernels.attention import attention_qkv_reference, fused_attention_qkv
+from devias_tpu_torch.kernels.attention import (
+    attention_qkv_bwd,
+    attention_qkv_bwd_reference,
+    attention_qkv_fwd_stats,
+    attention_qkv_fwd_stats_reference,
+    attention_qkv_reference,
+    fused_attention_qkv,
+    launch_counts,
+)
+
+F32 = dict(rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("N", [64, 96, 9])  # 9: ragged, CLS-like token count
@@ -20,7 +34,57 @@ def test_plain_version_matches_pallas_kernel(N):
     scale = D ** -0.5
     want = np.asarray(jax_fused_attention_qkv(jnp.asarray(qkv), H, scale, None, True))
     got = attention_qkv_reference(torch.from_numpy(qkv), H, scale).numpy()
-    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, want, **F32)
+
+
+def _qkv_do(N, B=2, H=4, D=16):
+    rng = np.random.default_rng(100 + N)
+    return (rng.normal(size=(B, N, 3 * H * D)).astype(np.float32),
+            rng.normal(size=(B, N, H * D)).astype(np.float32))
+
+
+@pytest.mark.parametrize("N", [64, 96, 9])
+def test_stats_forward_matches_pallas_kernel(N):
+    """o, m and l against `_fwd_call_qkv(with_stats=True)`; in interpret
+    mode each head is its own group, stats columns 0 (m) and 1 (l)."""
+    H, D = 4, 16
+    qkv, _ = _qkv_do(N, H=H, D=D)
+    o_j, stats = _fwd_call_qkv(jnp.asarray(qkv), H, D ** -0.5, None, True)
+    o, m, l = attention_qkv_fwd_stats_reference(torch.from_numpy(qkv), H, D ** -0.5)
+    assert m.shape == l.shape == (2, H, N)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_j), **F32)
+    np.testing.assert_allclose(m.numpy(), np.asarray(stats)[..., 0], **F32)
+    np.testing.assert_allclose(l.numpy(), np.asarray(stats)[..., 1], rtol=2e-5, atol=2e-4)
+
+
+@pytest.mark.parametrize("N", [64, 96, 9])
+def test_backward_matches_jax_vjp_and_autograd(N):
+    """The plain backward against `jax.vjp` of the Pallas kernel pair and
+    against torch autograd of the plain forward; the autograd Function on
+    the CPU gives the plain backward exactly and launches no kernel."""
+    H, D = 4, 16
+    scale = D ** -0.5
+    qkv, do = _qkv_do(N, H=H, D=D)
+    _, vjp = jax.vjp(lambda x: jax_fused_attention_qkv(x, H, scale, None, True), jnp.asarray(qkv))
+    want = np.asarray(vjp(jnp.asarray(do))[0])
+    t_qkv, t_do = torch.from_numpy(qkv), torch.from_numpy(do)
+    o, m, l = attention_qkv_fwd_stats_reference(t_qkv, H, scale)
+    got = attention_qkv_bwd_reference(t_qkv, o, t_do, m, l, H, scale)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=2e-5)
+
+    x = t_qkv.clone().requires_grad_()
+    attention_qkv_reference(x, H, scale).backward(t_do)
+    np.testing.assert_allclose(got.numpy(), x.grad.numpy(), rtol=1e-4, atol=2e-5)
+
+    before = launch_counts()
+    y = t_qkv.clone().requires_grad_()
+    out = fused_attention_qkv(y, H, scale)
+    out.backward(t_do)
+    assert launch_counts() == before
+    torch.testing.assert_close(out.detach(), o, rtol=0, atol=0)
+    torch.testing.assert_close(y.grad, got, rtol=0, atol=0)
+    torch.testing.assert_close(attention_qkv_fwd_stats(t_qkv, H, scale)[1], m, rtol=0, atol=0)
+    torch.testing.assert_close(attention_qkv_bwd(t_qkv, o, t_do, m, l, H, scale), got, rtol=0, atol=0)
 
 
 def test_wrapper_takes_plain_version_on_cpu_without_counting():
@@ -73,3 +137,75 @@ def test_wrapper_rejects_bad_shapes():
         fused_attention_qkv(torch.zeros(2, 9, 100), 4, 0.125)
     with pytest.raises(ValueError, match="3\\*H\\*D"):
         fused_attention_qkv(torch.zeros(9, 3 * 64), 1, 0.125)
+
+
+def _exact_grad(qkv, do, H, scale):
+    o, m, l = attention_qkv_fwd_stats_reference(qkv.float(), H, scale)
+    return attention_qkv_bwd_reference(qkv.float(), o, do.float(), m, l, H, scale)
+
+
+@pytest.mark.parametrize("N", [1568, 1569, 77])
+def test_smoke_bwd_tolerance_catches_unmasked_ragged_tiles(N):
+    """`chip_smoke.py` holds each of dq, dk, dv to BWD_TOL of its RMS
+    against the f32 gradient. The kernels' own roundings (the plain
+    backward on bf16 inputs, fed the plain stats forward's o, m and l) stay
+    below it; a kernel that reads the rows past N of its last q and key
+    tiles (here: N(0, 1) rows, what lies beyond in memory) without masking
+    them reads above ten times it."""
+    from chip_smoke import BWD_TOL, bwd_errors
+
+    H, D = 6, 64
+    scale = D ** -0.5
+    rng = np.random.default_rng(N)
+    qkv = torch.from_numpy(rng.standard_normal((1, N, 3 * H * D), dtype=np.float32)).bfloat16()
+    do = torch.from_numpy(rng.standard_normal((1, N, H * D), dtype=np.float32)).bfloat16()
+    exact = _exact_grad(qkv, do, H, scale)
+    o, m, l = attention_qkv_fwd_stats_reference(qkv, H, scale)
+    good = max(bwd_errors(attention_qkv_bwd_reference(qkv, o, do, m, l, H, scale), exact, exact))
+    pad = -N % 64
+    tail_qkv = torch.from_numpy(rng.standard_normal((1, pad, 3 * H * D), dtype=np.float32)).bfloat16()
+    tail_do = torch.from_numpy(rng.standard_normal((1, pad, H * D), dtype=np.float32)).bfloat16()
+    bad_grad = _exact_grad(torch.cat([qkv, tail_qkv], 1), torch.cat([do, tail_do], 1), H, scale)[:, :N]
+    bad = min(bwd_errors(bad_grad, exact, exact))
+    assert good < BWD_TOL < bad / 10, (good, bad)
+
+
+@pytest.mark.parametrize("N", [1568, 77])
+def test_smoke_stats_tolerance_catches_unmasked_ragged_keys(N):
+    """l of the emulated kernel (bf16-rounded exponentials) is within
+    STATS_L_TOL of its RMS against f32; zero-filled ragged keys left in the
+    softmax read above twice it. m is exact."""
+    from chip_smoke import STATS_L_TOL, STATS_M_TOL
+
+    H, D = 6, 64
+    rng = np.random.default_rng(N)
+    qkv = torch.from_numpy(rng.standard_normal((1, N, 3 * H * D), dtype=np.float32)).bfloat16()
+    _, m, l = attention_qkv_fwd_stats_reference(qkv, H, D ** -0.5)
+    _, em, el = attention_qkv_fwd_stats_reference(qkv.float(), H, D ** -0.5)
+    padded = torch.cat([qkv, torch.zeros(1, -N % 64, 3 * H * D).bfloat16()], 1)
+    _, _, bl = attention_qkv_fwd_stats_reference(padded, H, D ** -0.5)
+    rms = el.square().mean().sqrt().item()
+    assert (m - em).abs().max().item() <= STATS_M_TOL * em.square().mean().sqrt().item()
+    good = (l - el).abs().max().item() / rms
+    bad = (bl[..., :N] - el).abs().max().item() / rms
+    assert good < STATS_L_TOL < bad / 2, (good, bad)
+
+
+def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
+    """A change to a header that a source includes, directly or through
+    another header, renames the library, so the next load rebuilds it; a
+    header it does not include leaves the name alone."""
+    from devias_tpu_torch.kernels import _build
+
+    (tmp_path / "a.cu").write_text('#include "b.cuh"\n#include <cuda_runtime.h>\n')
+    (tmp_path / "b.cuh").write_text('#pragma once\n#include "c.cuh"\n')
+    (tmp_path / "c.cuh").write_text("// one\n")
+    (tmp_path / "d.cuh").write_text("// unrelated\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path.resolve())
+    monkeypatch.setattr(_build, "SOURCES", {"a": tmp_path.resolve() / "a.cu"})
+    assert [p.name for p in _build.local_includes(_build.SOURCES["a"])] == ["a.cu", "b.cuh", "c.cuh"]
+    first = _build.library_path("a")
+    (tmp_path / "d.cuh").write_text("// changed\n")
+    assert _build.library_path("a") == first
+    (tmp_path / "c.cuh").write_text("// two\n")
+    assert _build.library_path("a") != first
