@@ -22,6 +22,14 @@ prints one JSON line, and the first failure exits non-zero:
    and at N = 1568 (and 1569 for K1-fwd) each kernel, its plain version and
    `scaled_dot_product_attention` (forward, or forward + backward; timed
    as a yardstick only, the port never calls it) timed with CUDA events.
+   kernel_q_kv: K2-fwd (`fused_attention_q_kv`), K2-fwd stats and K2-bwd
+   at (Nq, Nk) = (392, 1568) (four shards), (1568, 1568) (the one-card SP
+   step) and (77, 301) (ragged), within K1's tolerances, timed at the
+   first two. sp_compose: K2 on four 392-row query shards of a 1568-token
+   qkv against its whole kv, concatenated (and the shards' dkv summed),
+   against K1 and K1-bwd on that qkv. kernel_head_major: K3-fwd
+   (`fused_attention`) and K3-bwd (`attention_head_major_bwd`) at N = 1568
+   and 77, timed at 1568.
 3. slice: the flagship SlotViT-B (ViT-B/16 on 16x224x224 clips, 8 tied
    agg rounds over 2 slots, 400+365 head, bf16, fused attention, patchify
    embed) and the CLS scene teacher, random weights from a seed, through
@@ -43,6 +51,16 @@ prints one JSON line, and the first failure exits non-zero:
 6. train_vs_plain: one micro-batch of 2 clips with fixed FAME draws
    through the same weights with fused and with plain attention; the loss
    and three parameters' gradients held to TRAIN_TOL.
+7. sp_train: the same flagship step made with `sp_mesh=make_sp_mesh(1)`
+   over a one-process NCCL group (`maybe_init_distributed`), initialised
+   for this phase and destroyed after it: TRAIN_STEPS counted steps and one
+   deterministic `seq_parallel_tokens` pass (12 teacher K1-fwd, 12 student
+   K2-fwd stats and K2-bwd per step, 12 K2-fwd in the token pass, no other
+   kernel), the tokens held to SLICE_TOL of the ordinary forward's;
+   SP_TRAIN_WINDOW timed steps (sp_train_throughput), PROFILE_STEPS under
+   `torch.profiler` (sp_train_profile); sp_vs_train, the SP
+   and the ordinary step's loss on 2 clips with the same weights and FAME
+   draws, held as train_vs_plain holds them.
 
 Then one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 Exits non-zero, printing no result, without CUDA or without the port.
@@ -52,6 +70,7 @@ from __future__ import annotations
 
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -114,7 +133,7 @@ TRAIN_WINDOW = 20
 PROFILE_STEPS = 2
 # kernel classes of the profile, by substring of the kernel's name, first match
 KERNEL_CLASSES = (
-    ("K1 (port's attention kernels)", ("attention_qkv", "rowdot_kernel")),
+    ("attention (port's K1 and K2 kernels)", ("attention_fwd_kernel", "attention_bwd_", "rowdot_kernel")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "sm90_xmma", "cutlass", "gemv", "splitKreduce")),
     ("copy", ("Memcpy", "Memset", "copy_", "CatArrayBatched")),
     ("reduction", ("reduce_kernel", "Reduce", "softmax", "norm")),
@@ -140,11 +159,22 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bwd_errors(got, want, exact):
-    """Max abs error of dq, dk and dv in `got` against `want`, each over the
-    RMS of that component of `exact` (all [B, N, 3*H*D])."""
+def grad_errors(got, want, exact):
+    """Max abs error of each gradient in `got` against `want`, over the RMS
+    of the same gradient in `exact` (three sequences of tensors)."""
     return [(g.float() - w.float()).abs().max().item() / e.float().square().mean().sqrt().item()
-            for g, w, e in zip(got.chunk(3, -1), want.chunk(3, -1), exact.chunk(3, -1))]
+            for g, w, e in zip(got, want, exact)]
+
+
+def bwd_errors(got, want, exact):
+    """`grad_errors` of dq, dk and dv in K1's dqkv [B, N, 3*H*D]."""
+    return grad_errors(got.chunk(3, -1), want.chunk(3, -1), exact.chunk(3, -1))
+
+
+def q_kv_bwd_errors(got, want, exact):
+    """`grad_errors` of dq, dk and dv in K2's (dq [B, Nq, H*D],
+    dkv [B, Nk, 2*H*D])."""
+    return grad_errors(*((dq, *dkv.chunk(2, -1)) for dq, dkv in (got, want, exact)))
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -195,8 +225,35 @@ def attention_bwd_bound(N: int):
     return _bound(10 * B * H * N * N * D, (2 * B * N * 3 * H * D + 2 * B * N * H * D) * 2 + 2 * B * H * N * 4)
 
 
+def q_kv_bound(Nq: int, Nk: int, stats: bool = False):
+    """K2 forward: 4BHNqNkD operations; q and kv read, o (and m, l) written once."""
+    return _bound(4 * B * H * Nq * Nk * D,
+                  (2 * B * Nq * H * D + 2 * B * Nk * H * D) * 2 + (2 * B * H * Nq * 4 if stats else 0))
+
+
+def q_kv_bwd_bound(Nq: int, Nk: int):
+    """K2 backward: 10BHNqNkD operations; q, kv, o, dO, m, l read once, dq
+    and dkv written once."""
+    return _bound(10 * B * H * Nq * Nk * D,
+                  (4 * B * Nq * H * D + 4 * B * Nk * H * D) * 2 + 2 * B * H * Nq * 4)
+
+
+def head_major_bound(N: int, bwd: bool = False):
+    """K3: the forward's 4BHN^2D operations on q, k, v in and o out, or the
+    backward's 10BHN^2D on q, k, v, o, dO in and dq, dk, dv out (the
+    statistics it recomputes come from the S product counted there)."""
+    if bwd:
+        return _bound(10 * B * H * N * N * D, 8 * B * H * N * D * 2)
+    return _bound(4 * B * H * N * N * D, 4 * B * H * N * D * 2)
+
+
 def _rms(t) -> float:
     return t.float().square().mean().sqrt().item()
+
+
+def _normal(shape, seed: int):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda", torch.bfloat16)
 
 
 def phase_kernel(attn):
@@ -331,6 +388,190 @@ def phase_kernel_bwd(attn):
     return worst, timing
 
 
+# K2's shapes: the four-shard shape (the local quarter of a 1568-token clip
+# against all its keys), the one-shard shape the main path runs, and a
+# shape ragged on both axes
+Q_KV_SHAPES = ((392, 1568), (1568, 1568), (77, 301))
+
+
+def _sdpa_fwd_bwd(q, k, v, do):
+    """`scaled_dot_product_attention` forward + backward on head-major
+    copies: the library yardstick of a backward kernel."""
+    heads = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def run():
+        out = F.scaled_dot_product_attention(*heads, scale=SCALE)
+        torch.autograd.grad(out, heads, do)
+
+    return run
+
+
+def phase_kernel_q_kv(attn):
+    """K2-fwd, K2-fwd stats and K2-bwd against their plain versions at
+    Q_KV_SHAPES, within K1's tolerances, and timed at the first two."""
+    worst = {"K2-fwd": 0.0, "K2-fwd-stats": 0.0, "K2-bwd": 0.0}
+    timing = {}
+    for Nq, Nk in Q_KV_SHAPES:
+        q, kv, do = _normal((B, Nq, H * D), Nq), _normal((B, Nk, 2 * H * D), Nk + 1), _normal((B, Nq, H * D), 3)
+        out = attn.fused_attention_q_kv(q, kv, H, SCALE)
+        o, m, l = attn.attention_q_kv_fwd_stats(q, kv, H, SCALE)
+        dq, dkv = attn.attention_q_kv_bwd(q, kv, o, do, m, l, H, SCALE)
+        torch.cuda.synchronize()
+        row = {"phase": "kernel_q_kv", "Nq": Nq, "Nk": Nk,
+               "finite": all(bool(torch.isfinite(t).all().item()) for t in (out, o, m, l, dq, dkv))}
+        plain = attn.attention_q_kv_reference(q, kv, H, SCALE)
+        exact = attn.attention_q_kv_reference(q.float(), kv.float(), H, SCALE)
+        rms = _rms(exact)
+        err, err_f32 = (out.float() - plain.float()).abs().max().item(), (out.float() - exact).abs().max().item()
+        row["K2-fwd"] = {"max_abs_err": err, "tol": PLAIN_TOL * rms, "max_abs_err_vs_f32": err_f32,
+                         "tol_vs_f32": KERNEL_TOL * rms}
+        ok = row["finite"] and err <= PLAIN_TOL * rms and err_f32 <= KERNEL_TOL * rms
+        worst["K2-fwd"] = max(worst["K2-fwd"], err)
+        del plain, exact
+        # o against the plain version in bf16 to PLAIN_TOL, as the no-stats
+        # form: both are rounded to bf16, and one ulp of the largest output
+        # (2^-9 near 0.5) is already 0.047 of the RMS at Nq=392
+        o_tol = {"plain": PLAIN_TOL, "f32": KERNEL_TOL}
+        stats = {"tol_rms": {"o": o_tol, "m": STATS_M_TOL, "l": STATS_L_TOL}}
+        for label, src in (("plain", (q, kv)), ("f32", (q.float(), kv.float()))):
+            po, pm, pl = attn.attention_q_kv_fwd_stats_reference(*src, H, SCALE)
+            errs = {"o": (o.float() - po.float()).abs().max().item() / _rms(po),
+                    "m": (m - pm).abs().max().item() / _rms(pm), "l": (l - pl).abs().max().item() / _rms(pl)}
+            stats[f"err_rms_vs_{label}"] = errs
+            ok &= errs["o"] <= o_tol[label] and errs["m"] <= STATS_M_TOL and errs["l"] <= STATS_L_TOL
+            if label == "plain":
+                stats["max_abs_err"] = (o.float() - po.float()).abs().max().item()
+                worst["K2-fwd-stats"] = max(worst["K2-fwd-stats"], stats["max_abs_err"])
+        row["K2-fwd-stats"] = stats
+        plain_g = attn.attention_q_kv_bwd_reference(q, kv, o, do, m, l, H, SCALE)
+        eo, em, el = attn.attention_q_kv_fwd_stats_reference(q.float(), kv.float(), H, SCALE)
+        exact_g = attn.attention_q_kv_bwd_reference(q.float(), kv.float(), eo, do.float(), em, el, H, SCALE)
+        bwd = {"tol_rms": BWD_TOL, "err_rms_vs_plain": q_kv_bwd_errors((dq, dkv), plain_g, exact_g),
+               "err_rms_vs_f32": q_kv_bwd_errors((dq, dkv), exact_g, exact_g),
+               "plain_err_rms_vs_f32": q_kv_bwd_errors(plain_g, exact_g, exact_g),
+               "max_abs_err": max((a.float() - b.float()).abs().max().item() for a, b in zip((dq, dkv), plain_g))}
+        row["K2-bwd"] = bwd
+        ok &= max(bwd["err_rms_vs_plain"] + bwd["err_rms_vs_f32"]) <= BWD_TOL
+        worst["K2-bwd"] = max(worst["K2-bwd"], bwd["max_abs_err"])
+        del plain_g, eo, em, el, exact_g
+        torch.cuda.empty_cache()
+        if (Nq, Nk) != Q_KV_SHAPES[-1]:
+            qh = q.view(B, Nq, H, D).transpose(1, 2)
+            kh, vh = kv.view(B, Nk, 2, H, D).permute(2, 0, 3, 1, 4)
+            sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=SCALE), 20)
+            t = {}
+            for name, fn, plain_fn, lib_ms, bound in (
+                    ("K2-fwd", lambda: attn.fused_attention_q_kv(q, kv, H, SCALE),
+                     lambda: attn.attention_q_kv_reference(q, kv, H, SCALE), sdpa_ms, q_kv_bound(Nq, Nk)),
+                    ("K2-fwd-stats", lambda: attn.attention_q_kv_fwd_stats(q, kv, H, SCALE),
+                     lambda: attn.attention_q_kv_fwd_stats_reference(q, kv, H, SCALE), sdpa_ms,
+                     q_kv_bound(Nq, Nk, stats=True)),
+                    ("K2-bwd", lambda: attn.attention_q_kv_bwd(q, kv, o, do, m, l, H, SCALE),
+                     lambda: attn.attention_q_kv_bwd_reference(q, kv, o, do, m, l, H, SCALE),
+                     time_ms(_sdpa_fwd_bwd(qh, kh, vh, do.view(B, Nq, H, D).transpose(1, 2)), 20),
+                     q_kv_bwd_bound(Nq, Nk))):
+                bound_ms, bound_by, flops, nbytes = bound
+                t[name] = {"ms": time_ms(fn, 20), "plain_ms": time_ms(plain_fn, 3), "library_ms": lib_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+                           "exp_bound_ms": B * H * Nq * Nk / SFU_PER_S * 1e3}
+                t[name]["tflops"] = flops / t[name]["ms"] / 1e9
+                torch.cuda.empty_cache()
+            t["K2-bwd"]["library_call"] = "scaled_dot_product_attention forward + backward"
+            row["timing"] = t
+            timing[(Nq, Nk)] = t
+        emit(row)
+        if not ok:
+            fail(f"K2 at Nq={Nq}, Nk={Nk} beyond its limits: {row}")
+        del q, kv, do, out, o, m, l, dq, dkv
+        torch.cuda.empty_cache()
+    return worst, timing
+
+
+def phase_sp_compose(attn):
+    """The four-shard composition at N=1568: K2 on four 392-row query
+    shards against the full kv, concatenated, against K1 on the same qkv;
+    the shards' dkv summed, against K1-bwd."""
+    N, C, S = 1568, H * D, 4
+    n = N // S
+    qkv, do = _inputs(N, 40)
+    o1, m1, l1 = attn.attention_qkv_fwd_stats(qkv, H, SCALE)
+    dqkv = attn.attention_qkv_bwd(qkv, o1, do, m1, l1, H, SCALE)
+    kv = qkv[..., C:].contiguous()
+    parts, dkv = [], torch.zeros(B, N, 2 * C, device="cuda")
+    for r in range(S):
+        q = qkv[:, r * n:(r + 1) * n, :C].contiguous()
+        o, m, l = attn.attention_q_kv_fwd_stats(q, kv, H, SCALE)
+        dq, dkv_r = attn.attention_q_kv_bwd(q, kv, o, do[:, r * n:(r + 1) * n].contiguous(), m, l, H, SCALE)
+        parts.append((o, m, l, dq))
+        dkv += dkv_r.float()
+    torch.cuda.synchronize()
+    o, m, l, dq = (torch.cat([p[i] for p in parts], dim=1 if i in (0, 3) else -1) for i in range(4))
+    errs = {"o": (o.float() - o1.float()).abs().max().item() / _rms(o1),
+            "m": (m - m1).abs().max().item() / _rms(m1), "l": (l - l1).abs().max().item() / _rms(l1)}
+    grads = grad_errors((dq, *dkv.chunk(2, -1)), dqkv.chunk(3, -1), dqkv.chunk(3, -1))
+    row = {"phase": "sp_compose", "shards": S, "N": N, "err_rms_vs_k1": errs, "grad_err_rms_vs_k1": grads,
+           "tol_rms": {"o": KERNEL_TOL, "m": STATS_M_TOL, "l": STATS_L_TOL, "grads": BWD_TOL}}
+    emit(row)
+    if errs["o"] > KERNEL_TOL or errs["m"] > STATS_M_TOL or errs["l"] > STATS_L_TOL or max(grads) > BWD_TOL:
+        fail(f"four K2 shards disagree with K1: {row}")
+    del qkv, do, o1, m1, l1, dqkv, kv, parts, dkv, o, m, l, dq
+    torch.cuda.empty_cache()
+
+
+def phase_kernel_head_major(attn):
+    """K3-fwd and K3-bwd against their plain versions at N = 1568 and 77,
+    timed at 1568."""
+    worst, timing = {"K3-fwd": 0.0, "K3-bwd": 0.0}, None
+    for N in (1568, 77):
+        q, k, v, do = (_normal((B, H, N, D), 50 + N + i) for i in range(4))
+        out = attn.fused_attention(q, k, v, SCALE)
+        grads = attn.attention_head_major_bwd(q, k, v, out, do, SCALE)
+        torch.cuda.synchronize()
+        plain = attn.attention_head_major_reference(q, k, v, SCALE)
+        exact = attn.attention_head_major_reference(q.float(), k.float(), v.float(), SCALE)
+        rms = _rms(exact)
+        err, err_f32 = (out.float() - plain.float()).abs().max().item(), (out.float() - exact).abs().max().item()
+        plain_g = attn.attention_head_major_bwd_reference(q, k, v, out, do, SCALE)
+        exact_g = attn.attention_head_major_bwd_reference(q.float(), k.float(), v.float(), exact, do.float(), SCALE)
+        row = {"phase": "kernel_head_major", "N": N,
+               "finite": all(bool(torch.isfinite(t).all().item()) for t in (out, *grads)),
+               "K3-fwd": {"max_abs_err": err, "tol": PLAIN_TOL * rms, "max_abs_err_vs_f32": err_f32,
+                          "tol_vs_f32": KERNEL_TOL * rms},
+               "K3-bwd": {"tol_rms": BWD_TOL, "err_rms_vs_plain": grad_errors(grads, plain_g, exact_g),
+                          "err_rms_vs_f32": grad_errors(grads, exact_g, exact_g),
+                          "plain_err_rms_vs_f32": grad_errors(plain_g, exact_g, exact_g),
+                          "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                             for a, b in zip(grads, plain_g))}}
+        worst["K3-fwd"] = max(worst["K3-fwd"], err)
+        worst["K3-bwd"] = max(worst["K3-bwd"], row["K3-bwd"]["max_abs_err"])
+        ok = row["finite"] and err <= PLAIN_TOL * rms and err_f32 <= KERNEL_TOL * rms \
+            and max(row["K3-bwd"]["err_rms_vs_plain"] + row["K3-bwd"]["err_rms_vs_f32"]) <= BWD_TOL
+        del plain, exact, plain_g, exact_g
+        torch.cuda.empty_cache()
+        if N == 1568:
+            t = {}
+            for name, fn, plain_fn, lib, bound in (
+                    ("K3-fwd", lambda: attn.fused_attention(q, k, v, SCALE),
+                     lambda: attn.attention_head_major_reference(q, k, v, SCALE),
+                     lambda: F.scaled_dot_product_attention(q, k, v, scale=SCALE), head_major_bound(N)),
+                    ("K3-bwd", lambda: attn.attention_head_major_bwd(q, k, v, out, do, SCALE),
+                     lambda: attn.attention_head_major_bwd_reference(q, k, v, out, do, SCALE),
+                     _sdpa_fwd_bwd(q, k, v, do), head_major_bound(N, bwd=True))):
+                bound_ms, bound_by, flops, nbytes = bound
+                t[name] = {"ms": time_ms(fn, 20), "plain_ms": time_ms(plain_fn, 3), "library_ms": time_ms(lib, 20),
+                           "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes}
+                t[name]["tflops"] = flops / t[name]["ms"] / 1e9
+                torch.cuda.empty_cache()
+            t["K3-bwd"]["library_call"] = "scaled_dot_product_attention forward + backward"
+            row["timing"] = timing = t
+        emit(row)
+        if not ok:
+            fail(f"K3 at N={N} beyond its limits: {row}")
+        del q, k, v, do, out, grads
+        torch.cuda.empty_cache()
+    return worst, timing
+
+
 def synthetic_batches():
     rng = np.random.default_rng(0)
     batches = []
@@ -444,8 +685,9 @@ def vit_flops_per_clip(N: int, C: int = 768, depth: int = 12) -> float:
 def profile_breakdown(fn, n: int) -> dict:
     """Run fn() n times under torch.profiler. Per call: host-clock ms, the
     device's busy ms (union of its kernel and copy intervals) and idle
-    share, device ms by KERNEL_CLASSES, and the ten kernels with the most
-    device time."""
+    share, device ms by KERNEL_CLASSES, the ten kernels with the most
+    device time and the ten host operators with the most self CPU time
+    (under the profiler, which adds its own to each)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -481,10 +723,14 @@ def profile_breakdown(fn, n: int) -> dict:
         classes[label] += ms / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     busy_ms = busy_us / 1e3 / n
+    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)[:10]
     return {"calls": n, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms if spans else None,
             "device_ms_by_class": classes,
-            "top_kernels": [{"name": name[:120], "ms": ms / n, "launches": c / n} for name, (ms, c) in top]}
+            "top_kernels": [{"name": name[:120], "ms": ms / n, "launches": c / n} for name, (ms, c) in top],
+            "top_host_ops": [{"name": e.key[:80], "self_cpu_ms": e.self_cpu_time_total / 1e3 / n,
+                              "calls": e.count / n} for e in host]}
 
 
 def _train_parts():
@@ -524,7 +770,7 @@ def phase_train(attn, card):
     emit({"phase": "train", "card": card, "steps": TRAIN_STEPS, "clips_per_step": B, "setup_s": setup_s,
           "first_steps_s": first_s, "metrics": history, "launches": counts, "param_max_change": changed,
           "state_step": state.step})
-    want = {name: 12 * TRAIN_STEPS for name in counts}
+    want = {name: 12 * TRAIN_STEPS if name.startswith("K1") else 0 for name in counts}
     if counts != want:
         fail(f"train launches {counts}; want {want} (12 teacher K1-fwd, 12 student K1-fwd stats and K1-bwd per step)")
     if not finite or state.step != TRAIN_STEPS or not all(v > 0 for v in changed.values()):
@@ -589,6 +835,133 @@ def phase_train_vs_plain(card):
         fail("fused and plain train steps disagree beyond their limits")
 
 
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+SP_TRAIN_WINDOW = 10
+
+
+def phase_sp_train(attn, card):
+    """The sequence-parallel slot train step on a seq group of this one card
+    over NCCL (`maybe_init_distributed` with a one-process coordinator,
+    `make_sp_mesh(1)`): TRAIN_STEPS counted steps and one deterministic SP
+    token pass (`seq_parallel_tokens`, K2-fwd) held to SLICE_TOL of the
+    ordinary forward, a SP_TRAIN_WINDOW-step timed window, a profile, and
+    sp_vs_train.
+    The group exists for this phase only."""
+    import torch.distributed as dist
+
+    from devias_tpu_torch.core.dist import make_sp_mesh, maybe_init_distributed, reduce_backbone_grads, seq_parallel_tokens
+    from devias_tpu_torch.nn import create_model
+    from devias_tpu_torch.train import OptimConfig, TrainState, make_optimizer, make_slot_train_step
+    from devias_tpu_torch.train.step import slot_loss, to_device
+
+    os.environ.update(DEVIAS_TPU_COORDINATOR=f"127.0.0.1:{_free_port()}", DEVIAS_TPU_NUM_PROCS="1",
+                      DEVIAS_TPU_PROC_ID="0")
+    if not maybe_init_distributed("cuda") or dist.get_backend() != "nccl":
+        fail("no NCCL process group for the SP phase")
+    try:
+        mesh = make_sp_mesh(1)
+        t0 = time.perf_counter()
+        student = create_model("slot_vit_base_patch16_224", seed=0, fused_attention=True, **SLOT_KW)
+        teacher = create_model("vit_base_patch16_224", seed=1, fused_attention=True, **TEACHER_KW)
+        opt, lr_fn = make_optimizer(student, OptimConfig(lr=5e-4, total_steps=1000, warmup_steps=10))
+        state = TrainState.create(student, opt)
+        loss_cfg, step_cfg = _train_parts()
+        step = make_slot_train_step(student, teacher, opt, loss_cfg, step_cfg, lr_fn, sp_mesh=mesh)
+        rng = np.random.default_rng(0)
+        batch = {"videos": rng.standard_normal(CLIPS, dtype=np.float32),
+                 "labels": rng.integers(0, NUM_CLASSES, size=B)}
+        videos = to_device(batch["videos"], torch.device("cuda"))
+        params = dict(student.named_parameters())
+        before = {n: params[n].detach().clone() for n in TRAIN_WATCH}
+        setup_s = time.perf_counter() - t0
+
+        attn.reset_launch_counts()
+        t0 = time.perf_counter()
+        history = [step(state, batch, host_metrics=True) for _ in range(TRAIN_STEPS)]
+        with torch.no_grad():
+            sp_tokens = seq_parallel_tokens(student, videos, mesh)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = attn.launch_counts()
+        student.eval()
+        with torch.no_grad():
+            tokens = student.forward_features(videos)
+        student.train()
+        token_err = (sp_tokens.float() - tokens.float()).abs().max().item()
+        token_ref = tokens.float().abs().max().item()
+        changed = {n: (params[n].detach() - before[n]).abs().max().item() for n in TRAIN_WATCH}
+        finite = all(np.isfinite(v) for m in history for v in m.values())
+        emit({"phase": "sp_train", "card": card, "backend": dist.get_backend(), "seq": mesh.seq_size,
+              "steps": TRAIN_STEPS, "clips_per_step": B, "setup_s": setup_s, "first_steps_s": first_s,
+              "metrics": history, "launches": counts, "param_max_change": changed, "state_step": state.step,
+              "sp_tokens_max_abs_err": token_err, "tokens_max_abs": token_ref, "tokens_tol": SLICE_TOL})
+        want = {name: 0 for name in counts}
+        want.update({"K1-fwd": 12 * TRAIN_STEPS, "K2-fwd": 12, "K2-fwd-stats": 12 * TRAIN_STEPS,
+                     "K2-bwd": 12 * TRAIN_STEPS})
+        if counts != want:
+            fail(f"SP train launches {counts}; want {want} (12 teacher K1-fwd, 12 student K2-fwd stats and "
+                 f"K2-bwd per step, 12 K2-fwd in the deterministic SP token pass)")
+        if not finite or state.step != TRAIN_STEPS or not all(v > 0 for v in changed.values()):
+            fail(f"SP train steps wrong: finite={finite} step={state.step} changes={changed}")
+        if not token_err <= SLICE_TOL * token_ref:
+            fail(f"SP tokens differ from the ordinary forward's by {token_err} (> {SLICE_TOL} x {token_ref})")
+        del sp_tokens, tokens
+
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SP_TRAIN_WINDOW):
+            metrics = step(state, batch)
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+        emit({"phase": "sp_train_throughput", "card": card, "steps": SP_TRAIN_WINDOW, "clips_per_step": B,
+              "window_s": window_s, "ms_per_step": window_s / SP_TRAIN_WINDOW * 1e3,
+              "clips_per_s": SP_TRAIN_WINDOW * B / window_s,
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "loss": float(metrics["loss"])})
+        emit({"phase": "sp_train_profile", "card": card,
+              **profile_breakdown(lambda: step(state, batch), PROFILE_STEPS)})
+        del opt, state, step
+
+        # sp_vs_train: one micro-batch of 2 clips, the same weights and FAME draws
+        dev = torch.device("cuda")
+        rng = np.random.default_rng(1)
+        clips = torch.from_numpy(rng.standard_normal((2,) + CLIPS[1:], dtype=np.float32)).to(dev)
+        labels = torch.from_numpy(rng.integers(0, NUM_CLASSES, size=2)).to(dev)
+        draws = {"perm": torch.tensor([1, 0], device=dev), "keep": torch.tensor([True, True], device=dev)}
+        out = {}
+        for sp in (True, False):
+            student.zero_grad(set_to_none=True)
+            total, _ = slot_loss(student, teacher, clips, labels, loss_cfg, step_cfg,
+                                 torch.Generator(device=dev).manual_seed(0), draws, mesh if sp else None)
+            total.backward()
+            if sp:
+                reduce_backbone_grads(student, mesh)
+            out[sp] = (total.item(), {n: params[n].grad.float().clone() for n in TRAIN_WATCH})
+        (loss_sp, grads_sp), (loss_ref, grads_ref) = out[True], out[False]
+        row = {"phase": "sp_vs_train", "card": card, "clips": 2, "loss_sp": loss_sp, "loss_train": loss_ref,
+               "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_TOL, "grads": {}}
+        ok = np.isfinite(loss_sp) and abs(loss_sp - loss_ref) <= TRAIN_LOSS_TOL * abs(loss_ref)
+        for n in TRAIN_WATCH:
+            err = (grads_sp[n] - grads_ref[n]).abs().max().item()
+            ref = grads_ref[n].abs().max().item()
+            finite = bool(torch.isfinite(grads_sp[n]).all().item())
+            row["grads"][n] = {"max_abs_err": err, "max_abs_train": ref, "finite": finite}
+            ok &= finite and ref > 0 and err <= TRAIN_TOL * ref
+        emit(row)
+        if not ok:
+            fail("the SP and the ordinary train step disagree beyond their limits")
+        del student, teacher, params
+        torch.cuda.empty_cache()
+        return counts
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -604,23 +977,45 @@ def main() -> int:
     fwd_err, fwd_timing = phase_kernel(attn)
     stats_err, stats_timing = phase_kernel_stats(attn)
     bwd_err, bwd_timing = phase_kernel_bwd(attn)
+    q_kv_err, q_kv_timing = phase_kernel_q_kv(attn)
+    phase_sp_compose(attn)
+    hm_err, hm_timing = phase_kernel_head_major(attn)
     eval_launches = phase_slice(attn, card)
     train_launches = phase_train(attn, card)
     phase_train_vs_plain(card)
+    sp_launches = phase_sp_train(attn, card)
 
+    def launches(name):
+        return train_launches[name] + sp_launches[name]
+
+    # K2 in the kernels line at the shape the one-card SP step gives it; the
+    # four-shard shape beside it
+    main_shape, shard_shape = Q_KV_SHAPES[1], Q_KV_SHAPES[0]
     rows = (
         ("K1-fwd fused_attention_qkv", "attention_fwd.cu", "devias_tpu/kernels/attention.py:377",
-         eval_launches + train_launches["K1-fwd"], fwd_err, fwd_timing[1568]),
+         eval_launches + launches("K1-fwd"), fwd_err, fwd_timing[1568]),
         ("K1-fwd-stats attention_qkv_fwd_stats", "attention_fwd.cu", "devias_tpu/kernels/attention.py:377",
-         train_launches["K1-fwd-stats"], stats_err, stats_timing),
+         launches("K1-fwd-stats"), stats_err, stats_timing),
         ("K1-bwd attention_qkv_bwd", "attention_bwd.cu", "devias_tpu/kernels/attention.py:426",
-         train_launches["K1-bwd"], bwd_err, bwd_timing),
+         launches("K1-bwd"), bwd_err, bwd_timing),
+    ) + tuple(
+        (f"{kid} {fn}", src, f"devias_tpu/kernels/attention.py:{line}", launches(kid), q_kv_err[kid],
+         dict(q_kv_timing[main_shape][kid], shape=list(main_shape), four_shard=q_kv_timing[shard_shape][kid]))
+        for kid, fn, src, line in (("K2-fwd", "fused_attention_q_kv", "attention_fwd.cu", 546),
+                                   ("K2-fwd-stats", "attention_q_kv_fwd_stats", "attention_fwd.cu", 546),
+                                   ("K2-bwd", "attention_q_kv_bwd", "attention_bwd.cu", 593))
+    ) + (
+        ("K3-fwd fused_attention", "attention_fwd.cu", "devias_tpu/kernels/attention.py:169",
+         launches("K3-fwd"), hm_err["K3-fwd"], hm_timing["K3-fwd"]),
+        ("K3-bwd attention_head_major_bwd", "attention_fwd.cu + attention_bwd.cu",
+         "devias_tpu/kernels/attention.py:192", launches("K3-bwd"), hm_err["K3-bwd"], hm_timing["K3-bwd"]),
     )
     emit({"kernels": [{
-        "name": name, "route": "cuda", "source": f"devias_tpu_torch/kernels/csrc/{src}", "replaces": replaces,
-        "launches": launches, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "name": name, "route": "cuda", "source": " + ".join(f"devias_tpu_torch/kernels/csrc/{f}" for f in src.split(" + ")),
+        "replaces": replaces, "launches": n, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-    } for name, src, replaces, launches, err, t in rows]})
+        **{k: t[k] for k in ("shape", "four_shard") if k in t},
+    } for name, src, replaces, n, err, t in rows]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,6 +1,7 @@
-// Device helpers shared by the K1 attention kernels (attention_fwd.cu,
-// attention_bwd.cu): 64 x 64 bf16 tiles in swizzled shared memory, cp.async
-// loads, ldmatrix fragment loads and the m16n8k16 bf16 tensor-core product.
+// Device helpers shared by the attention kernels (attention_fwd.cu,
+// attention_bwd.cu): strided operands, 64 x 64 bf16 tiles in swizzled shared
+// memory, cp.async loads, ldmatrix fragment loads and the m16n8k16 bf16
+// tensor-core product.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -16,6 +17,43 @@ constexpr int kThreads = 128;   // four warps, 16 rows each
 constexpr int kTile = 64 * kD;  // elements of one 64 x 64 tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// One operand of the attention kernels: element d of row n of head h of
+// batch b lies at p + b * batch + h * head + n * row + d (d contiguous, D =
+// 64). The three layouts the kernels serve are instances:
+//   fused qkv [B, N, 3*H*D] (K1): q, k, v at columns 0, H*D, 2*H*D,
+//     row = 3*H*D, head = D, batch = N * row;
+//   split q [B, Nq, H*D] and kv [B, Nk, 2*H*D] (K2): row = H*D and 2*H*D;
+//   head-major [B, H, N, D] (K3): row = D, head = N*D, batch = H*N*D.
+// k and v share one row stride in all three, and the kernels address both
+// by k.row: one stride register fewer in every K/V loop. Offsets within one
+// batch entry are 32-bit (`fits32`, checked on the host), so a tile load's
+// row address costs one 32-bit multiply.
+template <typename T>
+struct Strided {
+  T* p;
+  int64_t batch;
+  int head, row;
+  __device__ __forceinline__ T* at(int b, int h) const { return p + int64_t(b) * batch + h * head; }
+};
+using In = Strided<const __nv_bfloat16>;
+using Out = Strided<__nv_bfloat16>;
+
+// Host-side layouts of an operand.
+template <typename T>
+inline Strided<T> token_major(T* base, int col, int rows, int width, int D) {
+  return {base + col, int64_t(rows) * width, D, width};
+}
+template <typename T>
+inline Strided<T> head_major(T* base, int H, int N, int D) {
+  return {base, int64_t(H) * N * D, N * D, D};
+}
+// Whether every offset of `rows` rows of `heads` heads within one batch
+// entry fits a 32-bit int.
+template <typename T>
+inline bool fits32(const Strided<T>& s, int rows, int heads) {
+  return int64_t(heads) * s.head + int64_t(rows) * s.row < (int64_t(1) << 31);
+}
 
 // Element offset of 16-byte chunk `chunk` (8 bf16) of row `row` in a
 // 64 x 64 tile; the XOR swizzle keeps ldmatrix free of bank conflicts.
@@ -45,13 +83,13 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Rows [row0, row0 + 64) of one head's 64 columns; rows >= n read as zero.
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int row0, int n, int64_t stride) {
+                                          int row0, int n, int stride) {
 #pragma unroll
   for (int it = 0; it < 64 * 8 / kThreads; ++it) {
     const int i = threadIdx.x + it * kThreads;
     const int r = i >> 3, c = i & 7;
     const bool valid = row0 + r < n;
-    const __nv_bfloat16* g = src + (valid ? int64_t(row0 + r) * stride : 0) + c * 8;
+    const __nv_bfloat16* g = src + (valid ? (row0 + r) * stride : 0) + c * 8;
     cp_async16(dst + swz(r, c), g, valid);
   }
 }

@@ -91,10 +91,15 @@ class SlotViT(VideoViT):
             self.head = MLPHead(embed_dim, 512, total, out_init_std=0.02 * init_scale)
         self.mask_predictor = MaskPredictor(embed_dim, (img_size // PATCH_SIZE) ** 2)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                tokens: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """`tokens` [B, N, D], when given, stand in for the backbone's
+        (`devias_tpu/nn/models.py:136-146`): the sequence-parallel step
+        passes the gathered tokens of `core/dist.py::seq_parallel_tokens`."""
         if x.shape[2] != self.img_size or x.shape[3] != self.img_size:
             raise ValueError(f"clips must be {self.img_size}x{self.img_size}; got {tuple(x.shape)}")
-        tokens = self.forward_features(x, generator)
+        if tokens is None:
+            tokens = self.forward_features(x, generator)
         slots, attn = self.agg_block(tokens)
         slots_head = self.head(dropout(slots, self.fc_drop_rate, self.training, generator))
         out = {

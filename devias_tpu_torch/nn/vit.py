@@ -8,13 +8,18 @@ follows the reference key layout (`patch_embed.proj.weight`,
 takes what `ckpt/from_jax.py` produces.
 
 Training mode (`module.train()`) enables dropout after the position
-embedding, after `proj` and after `fc2`, and drop-path in timm semantics (a per-sample Bernoulli keep scaled by 1/keep,
-rates rising linearly over the blocks). Every draw comes from the
-`torch.Generator` passed to `forward`; in `eval()` or at rate 0 they are
-no-ops. Gradients reach the float32 master weights through the casts at
-use; `FastLayerNorm`'s gradient is autograd's of its forward, the same
-function as the JAX package's hand-written VJP (which exists to save TPU
-memory).
+embedding, after `proj` and after `fc2`, and drop-path in timm semantics
+(a per-sample Bernoulli keep scaled by 1/keep, rates rising linearly over
+the blocks). Dropout draws from the `torch.Generator` passed to `forward`,
+drop-path from `path_generator` when one is given (sequence parallelism
+shares it across token shards) and from the same generator otherwise; in
+`eval()` or at rate 0 they are no-ops. Given `seq` (a
+`core/dist.py::SPMesh`), the backbone runs sequence-parallel on this
+rank's frames: attention gathers K/V over the seq group
+(`devias_tpu/nn/vit.py:225-249`). Gradients reach the float32 master
+weights through the casts at use; `FastLayerNorm`'s gradient is
+autograd's of its forward, the same function as the JAX package's
+hand-written VJP (which exists to save TPU memory).
 """
 
 from __future__ import annotations
@@ -26,7 +31,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from devias_tpu_torch.kernels.attention import attention_qkv_reference, fused_attention_qkv
+from devias_tpu_torch.core.dist import SPMesh, gather_kv
+from devias_tpu_torch.kernels.attention import (
+    attention_q_kv_reference,
+    attention_qkv_reference,
+    fused_attention_q_kv,
+    fused_attention_qkv,
+)
 
 PATCH_SIZE = 16
 NORM_EPS = 1e-6
@@ -34,6 +45,8 @@ MLP_RATIO = 4
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 PATCH_EMBED_MODES = ("conv", "patchify", "dot")
+# the VideoViT's own top-level modules; a model built on it adds others
+BACKBONE_MODULES = ("patch_embed", "cls_token", "blocks", "norm")
 
 
 def sinusoid_position_table(n_position: int, d_hid: int) -> np.ndarray:
@@ -158,7 +171,10 @@ class Attention(nn.Module):
     """Multi-head self-attention with one qkv weight, learnable q and v
     biases and a zero k bias. `fused=True` calls K1 on the [B, N, 3C]
     projection with no head transposes; otherwise the plain einsum path.
-    Attention-probability dropout in training is not ported and raises."""
+    Given `seq`, q stays local and k | v is gathered over the seq group:
+    K2 when fused, the plain einsum against the gathered kv otherwise.
+    Attention-probability dropout in training is not ported and raises, and
+    under sequence parallelism at any rate > 0, as the JAX package does."""
 
     def __init__(self, dim: int, num_heads: int, fused: bool = False, dtype: torch.dtype = torch.float32,
                  attn_drop: float = 0.0, proj_drop: float = 0.0):
@@ -178,9 +194,17 @@ class Attention(nn.Module):
         nn.init.zeros_(self.q_bias)
         nn.init.zeros_(self.v_bias)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                seq: Optional[SPMesh] = None) -> torch.Tensor:
         bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
         qkv = self.qkv(x.to(self.dtype)) + bias.to(self.dtype)
+        if seq is not None:
+            if self.attn_drop > 0.0:
+                raise NotImplementedError("attn_drop > 0 under sequence parallelism")
+            C = qkv.shape[-1] // 3
+            attend = fused_attention_q_kv if self.fused else attention_q_kv_reference
+            out = attend(qkv[..., :C].contiguous(), gather_kv(qkv[..., C:], seq), self.num_heads, self.scale)
+            return dropout(self.proj(out), self.proj_drop, self.training, generator)
         if self.training and self.attn_drop > 0.0:
             raise NotImplementedError("attention-probability dropout (attn_drop_rate > 0) is not ported")
         attend = fused_attention_qkv if self.fused else attention_qkv_reference
@@ -201,11 +225,13 @@ class Block(nn.Module):
         self.norm2 = FastLayerNorm(dim, dtype)
         self.mlp = Mlp(dim, MLP_RATIO * dim, False if exact_gelu else None, dtype, drop)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        y = self.attn(self.norm1(x), generator)
-        x = x + drop_path(y, self.drop_path_rate, self.training, generator)
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                path_generator: Optional[torch.Generator] = None, seq: Optional[SPMesh] = None) -> torch.Tensor:
+        path_generator = generator if path_generator is None else path_generator
+        y = self.attn(self.norm1(x), generator, seq)
+        x = x + drop_path(y, self.drop_path_rate, self.training, path_generator)
         y = self.mlp(self.norm2(x), generator)
-        return x + drop_path(y, self.drop_path_rate, self.training, generator)
+        return x + drop_path(y, self.drop_path_rate, self.training, path_generator)
 
 
 def patchify_video(x: torch.Tensor, tubelet: int = 2, patch: int = PATCH_SIZE) -> torch.Tensor:
@@ -262,7 +288,11 @@ class VideoViT(nn.Module):
     `final_norm=False`). `use_cls_token` prepends a learned CLS token;
     `input_norm` applies the ImageNet normalisation on the device (uint8 or
     [0, 1] clips). Block i's drop-path rate is linspace(0, drop_path_rate,
-    depth)[i]; `drop_rate` also applies after the position embedding."""
+    depth)[i]; `drop_rate` also applies after the position embedding.
+    `forward_features(..., seq=mesh)` is the sequence-parallel backbone:
+    this rank's frames, this rank's slice of the full sinusoid table, the
+    final norm on the local tokens (`core/dist.py::seq_parallel_tokens`
+    drives it and gathers the tokens)."""
 
     def __init__(self, embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
@@ -295,7 +325,14 @@ class VideoViT(nn.Module):
             self._pos_cache[key] = torch.from_numpy(table).to(device=device, dtype=self.dtype)
         return self._pos_cache[key]
 
-    def forward_features(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def backbone_parameters(self):
+        """The backbone's parameters (patch embed, CLS token, blocks, final
+        norm), without what a subclass adds on top."""
+        return [p for name, p in self.named_parameters() if name.split(".", 1)[0] in BACKBONE_MODULES]
+
+    def forward_features(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                         seq: Optional[SPMesh] = None,
+                         path_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.input_norm:
             if x.dtype == torch.uint8:
                 x = x.to(self.dtype) / 255.0
@@ -303,13 +340,19 @@ class VideoViT(nn.Module):
             std = torch.tensor(IMAGENET_STD, dtype=self.dtype, device=x.device)
             x = (x - mean) / std
         x = self.patch_embed(x)
-        if self.cls_token is not None:
-            cls = self.cls_token.to(self.dtype).expand(x.shape[0], -1, -1)
-            x = torch.cat([cls, x], dim=1)
-        x = x + self._pos(x.shape[1], x.device)[None]
-        x = dropout(x, self.drop_rate, self.training, generator)
+        if seq is not None:
+            if self.cls_token is not None:
+                raise NotImplementedError("sequence parallelism with a CLS token")
+            n = x.shape[1]
+            pos = self._pos(n * seq.seq_size, x.device)[seq.seq_rank * n:(seq.seq_rank + 1) * n]
+        else:
+            if self.cls_token is not None:
+                cls = self.cls_token.to(self.dtype).expand(x.shape[0], -1, -1)
+                x = torch.cat([cls, x], dim=1)
+            pos = self._pos(x.shape[1], x.device)
+        x = dropout(x + pos[None], self.drop_rate, self.training, generator)
         for blk in self.blocks:
-            x = blk(x, generator)
+            x = blk(x, generator, path_generator, seq)
         if self.norm is not None:
             x = self.norm(x)
         return x

@@ -6,9 +6,13 @@ or I420 unpack, FAME (mixed clips and patch-grid foreground masks), the
 frozen teacher's forward on the mixed clips under `no_grad`, the student's
 forward in `train()` mode, `devias_slot_loss` and its backward; the f32
 gradients of the micro-batches are summed and divided by their number, and
-one optimizer step follows. HVU, classification and multi-task steps, the
-segformer mix and the pipeline- and sequence-parallel variants are not
-ported yet.
+one optimizer step follows. The sequence-parallel variant (`sp_mesh`)
+runs FAME once per seq group and broadcasts it, the teacher on the full
+clips, the student's backbone on this rank's frames
+(`core/dist.py::seq_parallel_tokens`) and the agg, heads and loss on the
+gathered tokens, and sums the backbone's gradients over the group before
+the optimizer step. HVU, classification and multi-task steps, the
+segformer mix and the pipeline-parallel variant are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +25,13 @@ import torch
 from torch import nn
 
 from devias_tpu_torch.aug.fame import IMAGENET_MEAN, IMAGENET_STD, FAMEConfig, fame_augment
+from devias_tpu_torch.core.dist import (
+    SPMesh,
+    broadcast_from_seq_root,
+    reduce_backbone_grads,
+    seq_parallel_tokens,
+    split_generator,
+)
 from devias_tpu_torch.data.yuv import i420_to_rgb
 from devias_tpu_torch.device import DeviceLike, require_on, resolve_device
 from devias_tpu_torch.losses.slot_loss import SlotLossConfig, devias_slot_loss
@@ -53,29 +64,61 @@ def to_device(videos: Union[np.ndarray, torch.Tensor], device: torch.device) -> 
     return x.to(device, non_blocking=True)
 
 
-def slot_loss(model: nn.Module, teacher: nn.Module, videos: torch.Tensor, labels: torch.Tensor,
-              loss_cfg: SlotLossConfig, step_cfg: TrainStepConfig, generator: Optional[torch.Generator] = None,
-              draws: Optional[Dict] = None):
-    """One micro-batch of the slot train step up to its loss: the uint8 or
-    I420 unpack, FAME, the teacher under `no_grad` on the mixed clips, the
-    student's forward and `devias_slot_loss`. Returns (total loss, the
-    seven metrics detached); the caller runs the backward."""
-    if step_cfg.wire_format == "yuv420":
-        videos = i420_to_rgb(videos)
-    elif step_cfg.device_normalize:
-        videos = videos.float() / 255.0
-    if step_cfg.use_fame:
+def mix_clips(videos: torch.Tensor, labels: torch.Tensor, step_cfg: TrainStepConfig,
+              generator: Optional[torch.Generator] = None, draws: Optional[Dict] = None,
+              sp_mesh: Optional[SPMesh] = None):
+    """FAME on unpacked clips, or none: (videos, labels, fg_mask
+    [B, (H/16)(W/16)], fg_pf [B, T/2 (H/16)(W/16)]), the masks zero without
+    FAME. With `sp_mesh`, FAME runs on the seq group's first rank only and
+    its outputs are broadcast to the group, whatever the other ranks'
+    generators hold."""
+    B, T, H, W = videos.shape[:4]
+    n_sp = (H // 16) * (W // 16)
+    if not step_cfg.use_fame:
+        zeros = [torch.zeros(B, n, device=videos.device) for n in (n_sp, (T // 2) * n_sp)]
+        return (videos, labels, *zeros)
+    if sp_mesh is None or sp_mesh.seq_rank == 0:
         mean, std = ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)) if step_cfg.device_normalize else (IMAGENET_MEAN, IMAGENET_STD)
         videos, labels, (fg_mask, fg_pf) = fame_augment(videos, labels, step_cfg.fame, generator=generator,
                                                         draws=draws, mean=mean, std=std)
     else:
-        B, T, H, W = videos.shape[:4]
-        n_sp = (H // 16) * (W // 16)
-        fg_mask = torch.zeros(B, n_sp, device=videos.device)
-        fg_pf = torch.zeros(B, (T // 2) * n_sp, device=videos.device)
+        videos, labels = torch.empty_like(videos), torch.empty_like(labels)
+        fg_mask = torch.empty(B, n_sp, device=videos.device)
+        fg_pf = torch.empty(B, (T // 2) * n_sp, device=videos.device)
+    if sp_mesh is not None:
+        broadcast_from_seq_root([videos, labels, fg_mask, fg_pf], sp_mesh)
+    return videos, labels, fg_mask, fg_pf
+
+
+def slot_loss(model: nn.Module, teacher: nn.Module, videos: torch.Tensor, labels: torch.Tensor,
+              loss_cfg: SlotLossConfig, step_cfg: TrainStepConfig, generator: Optional[torch.Generator] = None,
+              draws: Optional[Dict] = None, sp_mesh: Optional[SPMesh] = None):
+    """One micro-batch of the slot train step up to its loss: the uint8 or
+    I420 unpack, FAME, the teacher under `no_grad` on the mixed clips, the
+    student's forward and `devias_slot_loss`. Returns (total loss, the
+    seven metrics detached); the caller runs the backward.
+
+    With `sp_mesh`, every rank of the seq group passes the same clips and
+    a `generator` in the same state. Three generators are split from it:
+    FAME's, used on the group's first rank only, whose mixed clips, labels
+    and masks are broadcast (GSPMD computes them once; it also keeps
+    `index_add_`'s atomic order on the card from giving ranks different
+    mixes); the backbone's (`seq_parallel_tokens`: token dropout per rank,
+    drop-path shared); and the one of the replicated heads, shared."""
+    if step_cfg.wire_format == "yuv420":
+        videos = i420_to_rgb(videos)
+    elif step_cfg.device_normalize:
+        videos = videos.float() / 255.0
+    fame_gen = backbone_gen = head_gen = generator
+    if sp_mesh is not None:
+        fame_gen, backbone_gen, head_gen = split_generator(generator, [videos.device, "cpu", videos.device])
+    videos, labels, fg_mask, fg_pf = mix_clips(videos, labels, step_cfg, fame_gen, draws, sp_mesh)
     with torch.no_grad():
         teacher_logits = teacher(videos)["logits"]
-    student = model(videos, generator=generator)
+    tokens = None
+    if sp_mesh is not None:
+        tokens = seq_parallel_tokens(model, videos, sp_mesh, deterministic=False, generator=backbone_gen)
+    student = model(videos, generator=head_gen, tokens=tokens)
     total, action_logits, parts = devias_slot_loss(student, teacher_logits, labels, fg_mask, fg_pf, loss_cfg)
     acc = (action_logits.argmax(dim=-1) == labels).float().mean()
     metrics = {k: v.detach() for k, v in parts.items()}
@@ -93,15 +136,24 @@ def make_slot_train_step(model: nn.Module, teacher: nn.Module, optimizer: torch.
     tensors, copied to `device` (`cuda` unless the caller asks for `cpu`),
     where the student, the teacher and the optimizer's parameters must
     already be; B = update_freq x micro-batch. Dropout, drop-path and FAME
-    draw from `generator`, or from the step's own generator (seed 0). `draws` fixes FAME's draws: one {"perm", "keep"} dict per
-    micro-batch (a list), or one dict when update_freq is 1.
+    draw from `generator`, or from the step's own generator (seed 0).
+    `draws` fixes FAME's draws: one {"perm", "keep"} dict per micro-batch
+    (a list), or one dict when update_freq is 1.
+
+    `sp_mesh` (`core/dist.py::make_sp_mesh`) selects sequence-parallel
+    training: every rank of the seq group calls the step with the same
+    batch and generator state (see `slot_loss`), and the backbone's
+    gradients are summed over the group before the optimizer step, which
+    is then the same on every rank. Its own generator lives on the CPU: the
+    streams are split from host draws, and a card generator passed in makes
+    each micro-batch's draw wait for the card.
 
     Returns the seven loss and accuracy metrics averaged over the
     micro-batches, `grad_norm` (before clipping) and, with `lr_fn`, `lr` at
     the step before the update: 0-d device tensors, or host floats with
     `host_metrics=True` (which synchronises)."""
-    if segformer_apply is not None or pp_mesh is not None or sp_mesh is not None:
-        raise NotImplementedError("the segformer mix and the pipeline- and sequence-parallel steps are not ported")
+    if segformer_apply is not None or pp_mesh is not None:
+        raise NotImplementedError("the segformer mix and the pipeline-parallel step are not ported")
     if step_cfg.num_data_shards > 1:
         raise NotImplementedError("shard-local FAME (num_data_shards > 1) comes with the parallel modes")
     if step_cfg.wire_format not in ("rgb", "yuv420"):
@@ -112,7 +164,9 @@ def make_slot_train_step(model: nn.Module, teacher: nn.Module, optimizer: torch.
     require_on(model, dev)
     require_on(teacher, dev, "teacher")
     teacher.eval().requires_grad_(False)
-    own_generator = torch.Generator(device=dev).manual_seed(0)
+    # the SP step splits its streams from host draws (`slot_loss`); a card
+    # generator would make each such draw wait for the card
+    own_generator = torch.Generator(device="cpu" if sp_mesh is not None else dev).manual_seed(0)
     U = step_cfg.update_freq
 
     def step(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None,
@@ -135,9 +189,11 @@ def make_slot_train_step(model: nn.Module, teacher: nn.Module, optimizer: torch.
         for u in range(U):
             sl = slice(u * mb, (u + 1) * mb)
             total, m = slot_loss(model, teacher, videos[sl], labels[sl], loss_cfg, step_cfg, gen,
-                                 None if draws is None else draws[u])
+                                 None if draws is None else draws[u], sp_mesh)
             total.backward()
             sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
+        if sp_mesh is not None:
+            reduce_backbone_grads(model, sp_mesh)
         if U > 1:
             for p in model.parameters():
                 if p.grad is not None:

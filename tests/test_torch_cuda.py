@@ -1,5 +1,5 @@
-"""K1 on the card: the CUDA kernels against their plain versions in bf16,
-and the wrappers' refusals. Marked `cuda`; each test skips without a card.
+"""K1, K2 and K3 on the card: the CUDA kernels against their plain
+versions in bf16, autograd through them, and the wrappers' refusals. Marked `cuda`; each test skips without a card.
 This file imports neither JAX nor the JAX package, so on a machine with a
 card and no JAX it runs as
 `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`."""
@@ -8,13 +8,23 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import BWD_TOL, STATS_L_TOL, STATS_M_TOL, bwd_errors
+from chip_smoke import BWD_TOL, STATS_L_TOL, STATS_M_TOL, bwd_errors, grad_errors, q_kv_bwd_errors
 from devias_tpu_torch.kernels.attention import (
+    attention_head_major_bwd,
+    attention_head_major_bwd_reference,
+    attention_head_major_reference,
+    attention_q_kv_bwd,
+    attention_q_kv_bwd_reference,
+    attention_q_kv_fwd_stats,
+    attention_q_kv_fwd_stats_reference,
+    attention_q_kv_reference,
     attention_qkv_bwd,
     attention_qkv_bwd_reference,
     attention_qkv_fwd_stats,
     attention_qkv_fwd_stats_reference,
     attention_qkv_reference,
+    fused_attention,
+    fused_attention_q_kv,
     fused_attention_qkv,
 )
 
@@ -120,3 +130,101 @@ def test_kernel_refuses_what_it_does_not_take(card):
         attention_qkv_bwd(good, o, o, m.bfloat16(), l, 2, 0.125)
     with pytest.raises(ValueError, match="do must be"):
         attention_qkv_bwd(good, o, o[:, :4], m, l, 2, 0.125)
+
+
+def _normal(card, shape, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(card, torch.bfloat16)
+
+
+def _rms(t):
+    return t.float().square().mean().sqrt().item()
+
+
+# (B, Nq, Nk, H): ragged on both axes, whole tiles, the four-shard shape
+Q_KV_SHAPES = [(2, 77, 301, 3), (2, 64, 128, 2), (1, 392, 1568, 12), (3, 9, 9, 1)]
+
+
+@pytest.mark.parametrize("B,Nq,Nk,H", Q_KV_SHAPES)
+def test_q_kv_kernels_match_plain_versions(card, B, Nq, Nk, H):
+    """K2: the no-stats and stats forwards within 0.04 of the f32 output's
+    RMS, m within STATS_M_TOL and l within STATS_L_TOL of their RMS, and dq,
+    dk, dv within BWD_TOL of their RMS against the plain version on the
+    same inputs and against the f32 gradient."""
+    q, kv, do = _normal(card, (B, Nq, H * 64), Nq), _normal(card, (B, Nk, 2 * H * 64), Nk), _normal(card, (B, Nq, H * 64), 1)
+    before = (fused_attention_q_kv.launches, attention_q_kv_fwd_stats.launches, attention_q_kv_bwd.launches)
+    out = fused_attention_q_kv(q, kv, H, 0.125)
+    o, m, l = attention_q_kv_fwd_stats(q, kv, H, 0.125)
+    dq, dkv = attention_q_kv_bwd(q, kv, o, do, m, l, H, 0.125)
+    torch.cuda.synchronize()
+    after = (fused_attention_q_kv.launches, attention_q_kv_fwd_stats.launches, attention_q_kv_bwd.launches)
+    assert after == tuple(b + 1 for b in before)
+    eo, em, el = attention_q_kv_fwd_stats_reference(q.float(), kv.float(), H, 0.125)
+    exact = attention_q_kv_reference(q.float(), kv.float(), H, 0.125)
+    assert out.shape == o.shape == q.shape and m.shape == l.shape == (B, H, Nq)
+    assert (out.float() - exact).abs().max().item() <= 0.04 * _rms(exact)
+    assert (o.float() - eo).abs().max().item() <= 0.04 * _rms(eo)
+    assert (m - em).abs().max().item() <= STATS_M_TOL * _rms(em)
+    assert (l - el).abs().max().item() <= STATS_L_TOL * _rms(el)
+    assert dq.shape == q.shape and dkv.shape == kv.shape and torch.isfinite(dkv).all()
+    plain = attention_q_kv_bwd_reference(q, kv, o, do, m, l, H, 0.125)
+    grads_exact = attention_q_kv_bwd_reference(q.float(), kv.float(), eo, do.float(), em, el, H, 0.125)
+    assert max(q_kv_bwd_errors((dq, dkv), plain, grads_exact)) <= BWD_TOL
+    assert max(q_kv_bwd_errors((dq, dkv), grads_exact, grads_exact)) <= BWD_TOL
+
+
+def test_q_kv_autograd_goes_through_both_kernels(card):
+    q, kv, do = _normal(card, (2, 77, 3 * 64), 1), _normal(card, (2, 140, 6 * 64), 2), _normal(card, (2, 77, 3 * 64), 3)
+    x, y = q.clone().requires_grad_(), kv.clone().requires_grad_()
+    before = (attention_q_kv_fwd_stats.launches, attention_q_kv_bwd.launches, fused_attention_q_kv.launches)
+    fused_attention_q_kv(x, y, 3, 0.125).backward(do)
+    torch.cuda.synchronize()
+    after = (attention_q_kv_fwd_stats.launches, attention_q_kv_bwd.launches, fused_attention_q_kv.launches)
+    assert after == (before[0] + 1, before[1] + 1, before[2])
+    o, m, l = attention_q_kv_fwd_stats(q, kv, 3, 0.125)
+    dq, dkv = attention_q_kv_bwd(q, kv, o, do, m, l, 3, 0.125)
+    torch.testing.assert_close(x.grad, dq, rtol=0, atol=0)
+    torch.testing.assert_close(y.grad, dkv, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("B,H,N", [(2, 3, 77), (2, 2, 64), (1, 12, 1568), (3, 1, 9)])
+def test_head_major_kernels_match_plain_versions(card, B, H, N):
+    """K3: the forward within 0.04 of the f32 output's RMS and 0.25 of it
+    against the plain version in bf16; dq, dk, dv within BWD_TOL of their
+    RMS against the plain backward and the f32 gradient; autograd runs the
+    two kernels once each."""
+    q, k, v, do = (_normal(card, (B, H, N, 64), N + i) for i in range(4))
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (fused_attention.launches, attention_head_major_bwd.launches)
+    out = fused_attention(*xs, 0.125)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (fused_attention.launches, attention_head_major_bwd.launches) == (before[0] + 1, before[1] + 1)
+    exact = attention_head_major_reference(q.float(), k.float(), v.float(), 0.125)
+    plain = attention_head_major_reference(q, k, v, 0.125)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    assert (out.float() - exact).abs().max().item() <= 0.04 * _rms(exact)
+    assert (out.float() - plain.float()).abs().max().item() <= 0.25 * _rms(exact)
+    grads = [x.grad for x in xs]
+    want = attention_head_major_bwd_reference(q, k, v, out.detach(), do, 0.125)
+    grads_exact = attention_head_major_bwd_reference(q.float(), k.float(), v.float(), exact, do.float(), 0.125)
+    assert max(grad_errors(grads, want, grads_exact)) <= BWD_TOL
+    assert max(grad_errors(grads, grads_exact, grads_exact)) <= BWD_TOL
+
+
+def test_split_kernels_refuse_what_they_do_not_take(card):
+    q, kv = torch.zeros(1, 8, 128, device=card), torch.zeros(1, 8, 256, device=card)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_attention_q_kv(q, kv, 2, 0.125)
+    with pytest.raises(ValueError, match="head dim"):
+        fused_attention_q_kv(q.bfloat16(), kv.bfloat16(), 4, 0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        wide = torch.zeros(1, 8, 384, device=card, dtype=torch.bfloat16)
+        fused_attention_q_kv(wide[..., :128], kv.bfloat16(), 2, 0.125)
+    hm = torch.zeros(1, 2, 8, 64, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_attention(hm.float(), hm.float(), hm.float(), 0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_attention(hm.transpose(1, 2), hm.transpose(1, 2), hm.transpose(1, 2), 0.125)
+    with pytest.raises(ValueError, match="head dim"):
+        fused_attention(hm[..., :32].contiguous(), hm[..., :32].contiguous(), hm[..., :32].contiguous(), 0.125)
