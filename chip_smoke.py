@@ -29,7 +29,15 @@ prints one JSON line, and the first failure exits non-zero:
    qkv against its whole kv, concatenated (and the shards' dkv summed),
    against K1 and K1-bwd on that qkv. kernel_head_major: K3-fwd
    (`fused_attention`) and K3-bwd (`attention_head_major_bwd`) at N = 1568
-   and 77, timed at 1568.
+   and 77, timed at 1568. kernel_slot_attention: K4
+   (`fused_slot_attention`) at the flagship agg round (12 x 2 slots,
+   D=768, 4 heads x 512) over N = 1568 and 301 keys, out and sim within
+   PLAIN_TOL of the bf16 plain version and KERNEL_TOL of the f32 one, the
+   Function's backward within BWD_TOL of autograd of the f32 plain
+   version, timed at 1568 (no single PyTorch call computes K4).
+   kernel_patch_embed: K5 (`patchify_embed`) at [12, 16, 224, 224, 3] and
+   the ragged [2, 4, 48, 80, 3], within PLAIN_TOL and KERNEL_TOL, timed at
+   the first with patchify + a bf16 matmul as the yardstick.
 3. slice: the flagship SlotViT-B (ViT-B/16 on 16x224x224 clips, 8 tied
    agg rounds over 2 slots, 400+365 head, bf16, fused attention, patchify
    embed) and the CLS scene teacher, random weights from a seed, through
@@ -61,6 +69,18 @@ prints one JSON line, and the first failure exits non-zero:
    `torch.profiler` (sp_train_profile); sp_vs_train, the SP
    and the ordinary step's loss on 2 clips with the same weights and FAME
    draws, held as train_vs_plain holds them.
+8. cli: the port's entry point, `devias_tpu_torch.cli.run_slot_finetuning`,
+   in-process at full width on synthetic 16x240x320 clips (after a line
+   with the cv2 and PIL versions it reads them with): a 4-step epoch of 12
+   samples drawn twice (`--num_sample 2`), a resume to the second epoch,
+   then --eval --eval_scene --run_knn on the trained checkpoint with a
+   scene teacher written from the port's seeded teacher. Each run's
+   kernel counts are zeroed just before and read just after (K1 only: 84
+   K1-fwd, 48 K1-fwd stats and 48 K1-bwd per train run, 432 K1-fwd in the
+   evaluation); the loop's ms per step on the host clock (over the epoch,
+   and over the steps after the first, whose batches were prefetched)
+   beside the direct step's; fails on a missing result file or a
+   non-finite metric.
 
 Then one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 Exits non-zero, printing no result, without CUDA or without the port.
@@ -572,6 +592,141 @@ def phase_kernel_head_major(attn):
     return worst, timing
 
 
+# K4 at the flagship agg round: 2 slots, D=768, 4 heads x 512, over the
+# student's 1568 tokens and a ragged 301
+SLOTS, AGG_DIM, AGG_HEADS, AGG_DIM_HEAD = 2, 768, 4, 512
+SLOT_ATTN_N = (1568, 301)
+
+
+def slot_attention_bound(N: int):
+    """K4: the q, k, v products (2BD·inner each over S, N, N rows), q·k^T
+    and a·v (2B·heads·S·N·dh each) and the output product; x, ctx, the four
+    weights and bo read once, out and sim written once."""
+    D, inner = AGG_DIM, AGG_HEADS * AGG_DIM_HEAD
+    flops = 2 * B * (SLOTS + 2 * N) * D * inner + 4 * B * AGG_HEADS * SLOTS * N * AGG_DIM_HEAD \
+        + 2 * B * SLOTS * inner * D
+    nbytes = 2 * (B * SLOTS * D + B * N * D + 4 * D * inner + D + B * SLOTS * D) + 4 * B * AGG_HEADS * SLOTS * N
+    return _bound(flops, nbytes)
+
+
+def _slot_inputs(N: int, seed: int):
+    """x, ctx ~ N(0, 1) (the normed slots and context) and the round's
+    weights ~ N(0, 0.02^2) (the agg Linear's init), bf16 on the card."""
+    rng = np.random.default_rng(seed)
+    D, inner = AGG_DIM, AGG_HEADS * AGG_DIM_HEAD
+    shapes = ((B, SLOTS, D, 1.0), (B, N, D, 1.0), (D, inner, 0.02), (D, inner, 0.02), (D, inner, 0.02),
+              (inner, D, 0.02), (D, 0.02))
+    return [torch.from_numpy(rng.standard_normal(s[:-1], dtype=np.float32) * np.float32(s[-1])).to(
+        "cuda", torch.bfloat16) for s in shapes]
+
+
+def phase_kernel_slot_attention(sa):
+    """K4 against its plain version at N in SLOT_ATTN_N: out and sim within
+    PLAIN_TOL (bf16 plain version) and KERNEL_TOL (f32) of the f32 RMS, the
+    Function's backward within BWD_TOL of autograd of the f32 plain version;
+    timed at N=1568."""
+    worst, timing = 0.0, None
+    for N in SLOT_ATTN_N:
+        inputs = _slot_inputs(N, 60 + N)
+        with torch.no_grad():
+            out, sim = sa.fused_slot_attention(*inputs, AGG_HEADS, AGG_DIM_HEAD)
+            torch.cuda.synchronize()
+            plain = sa.slot_attention_reference(*inputs, AGG_HEADS, AGG_DIM_HEAD)
+            exact = sa.slot_attention_reference(*(t.float() for t in inputs), AGG_HEADS, AGG_DIM_HEAD)
+        row = {"phase": "kernel_slot_attention", "N": N, "tol_rms": {"vs_plain": PLAIN_TOL, "vs_f32": KERNEL_TOL},
+               "finite": bool(torch.isfinite(out).all().item() and torch.isfinite(sim).all().item())}
+        ok = row["finite"]
+        for name, got, p, e in (("out", out, plain[0], exact[0]), ("sim", sim, plain[1], exact[1])):
+            rms = _rms(e)
+            errs = {"max_abs_err": (got.float() - p.float()).abs().max().item(),
+                    "max_abs_err_vs_f32": (got.float() - e).abs().max().item(), "rms_f32": rms}
+            row[name] = errs
+            ok &= errs["max_abs_err"] <= PLAIN_TOL * rms and errs["max_abs_err_vs_f32"] <= KERNEL_TOL * rms
+            worst = max(worst, errs["max_abs_err"])
+        # the backward: autograd of the plain version on the saved bf16
+        # inputs, against autograd of the f32 plain version
+        rng = np.random.default_rng(70 + N)
+        g_out = torch.from_numpy(rng.standard_normal(tuple(out.shape), dtype=np.float32)).cuda()
+        g_sim = torch.from_numpy(rng.standard_normal(tuple(sim.shape), dtype=np.float32)).cuda()
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        o, s = sa.fused_slot_attention(*leaves, AGG_HEADS, AGG_DIM_HEAD)
+        got = torch.autograd.grad((o, s), leaves, (g_out.to(o.dtype), g_sim))
+        leaves32 = [t.detach().float().requires_grad_() for t in inputs]
+        o, s = sa.slot_attention_reference(*leaves32, AGG_HEADS, AGG_DIM_HEAD)
+        want = torch.autograd.grad((o, s), leaves32, (g_out, g_sim))
+        row["bwd_err_rms_vs_f32"] = grad_errors(got, want, want)
+        row["bwd_tol_rms"] = BWD_TOL
+        ok &= all(bool(torch.isfinite(g).all().item()) for g in got) and max(row["bwd_err_rms_vs_f32"]) <= BWD_TOL
+        del leaves, leaves32, o, s, got, want, plain, exact
+        torch.cuda.empty_cache()
+        if N == SLOT_ATTN_N[0]:
+            bound_ms, bound_by, flops, nbytes = slot_attention_bound(N)
+            with torch.no_grad():
+                row.update(ms=time_ms(lambda: sa.fused_slot_attention(*inputs, AGG_HEADS, AGG_DIM_HEAD), 20),
+                           plain_ms=time_ms(lambda: sa.slot_attention_reference(*inputs, AGG_HEADS, AGG_DIM_HEAD), 5),
+                           library_ms=None, library_call="none: no single PyTorch call computes K4",
+                           bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes)
+            row["tflops"] = flops / row["ms"] / 1e9
+            timing = row
+        emit(row)
+        if not ok:
+            fail(f"K4 at N={N} beyond its limits: {row}")
+        del inputs, out, sim
+        torch.cuda.empty_cache()
+    return worst, timing
+
+
+PATCH_SHAPES = ((B, 16, 224, 224, 3), (2, 4, 48, 80, 3))
+
+
+def patch_embed_bound(shape, dout: int = 768):
+    """K5: 2·M·1536·Dout operations for M tokens; the f32 clip and the bf16
+    kernel read once, the bf16 tokens written once."""
+    Bx, T, Hx, Wx, C = shape
+    M = Bx * (T // 2) * (Hx // 16) * (Wx // 16)
+    return _bound(2 * M * 1536 * dout, 4 * Bx * T * Hx * Wx * C + 2 * 1536 * dout + 2 * M * dout)
+
+
+def phase_kernel_patch_embed(pe):
+    """K5 against its plain version at PATCH_SHAPES, within PLAIN_TOL (bf16
+    plain version) and KERNEL_TOL (f32 clip and kernel) of the f32 RMS;
+    timed at the flagship shape with the patchify + bf16 matmul yardstick."""
+    worst, timing = 0.0, None
+    for shape in PATCH_SHAPES:
+        rng = np.random.default_rng(sum(shape))
+        x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
+        kernel = torch.from_numpy(rng.standard_normal((1536, 768), dtype=np.float32) * np.float32(1536 ** -0.5)).to(
+            "cuda", torch.bfloat16)
+        out = pe.patchify_embed(x, kernel)
+        torch.cuda.synchronize()
+        plain = pe.patchify_embed_reference(x, kernel)
+        exact = pe.patchify_embed_reference(x, kernel.float())
+        rms = _rms(exact)
+        err, err_f32 = (out.float() - plain.float()).abs().max().item(), (out.float() - exact).abs().max().item()
+        row = {"phase": "kernel_patch_embed", "shape": list(shape), "out_shape": list(out.shape), "rms_f32": rms,
+               "max_abs_err": err, "tol": PLAIN_TOL * rms, "max_abs_err_vs_f32": err_f32,
+               "tol_vs_f32": KERNEL_TOL * rms, "finite": bool(torch.isfinite(out).all().item())}
+        worst = max(worst, err)
+        ok = row["finite"] and tuple(out.shape) == tuple(plain.shape) and err <= PLAIN_TOL * rms \
+            and err_f32 <= KERNEL_TOL * rms
+        del plain, exact
+        if shape == PATCH_SHAPES[0]:
+            bound_ms, bound_by, flops, nbytes = patch_embed_bound(shape)
+            row.update(ms=time_ms(lambda: pe.patchify_embed(x, kernel), 20),
+                       plain_ms=time_ms(lambda: pe.patchify_embed_reference(x, kernel), 5),
+                       library_ms=time_ms(lambda: pe._patches(x.bfloat16()) @ kernel, 20),
+                       library_call="two calls: the patchify copy of x.bfloat16() and torch.matmul (cuBLAS)",
+                       bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes)
+            row["tflops"] = flops / row["ms"] / 1e9
+            timing = row
+        emit(row)
+        if not ok:
+            fail(f"K5 at {shape} beyond its limits: {row}")
+        del x, kernel, out
+        torch.cuda.empty_cache()
+    return worst, timing
+
+
 def synthetic_batches():
     rng = np.random.default_rng(0)
     batches = []
@@ -795,7 +950,7 @@ def phase_train(attn, card):
     emit({"phase": "train_profile", "card": card, **profile_breakdown(lambda: step(state, batch), PROFILE_STEPS)})
     del student, teacher, opt, state, step
     torch.cuda.empty_cache()
-    return counts
+    return counts, ms
 
 
 def phase_train_vs_plain(card):
@@ -960,6 +1115,157 @@ def phase_sp_train(attn, card):
         return counts
     finally:
         dist.destroy_process_group()
+        for key in ("DEVIAS_TPU_COORDINATOR", "DEVIAS_TPU_NUM_PROCS", "DEVIAS_TPU_PROC_ID"):
+            os.environ.pop(key, None)
+
+
+# the CLI phase's synthetic filelists: 48 training clips (4 steps of 12
+# samples, each drawn twice by --num_sample 2), 12 validation and 12 test
+# clips (24 test views at 1 segment x 2 crops)
+CLI_TRAIN, CLI_VAL, CLI_TEST = 48, 12, 12
+CLI_FLAGS = ["--model", "slot_vit_base_patch16_224", "--num_latents", "2", "--agg_depth", "8", "--agg_weights_tie",
+             "--mask_model", "FAME", "--batch_size", "12", "--max_steps_per_epoch", "4", "--test_num_segment", "1",
+             "--test_num_crop", "2", "--synthetic_data"]
+
+
+def _cli_run(attn, cli, argv):
+    """One in-process run of the CLI with the kernels' counts zeroed just
+    before and read just after. Returns (result, counts, seconds)."""
+    attn.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = cli.main(cli.get_args(argv))
+    torch.cuda.synchronize()
+    return result, attn.launch_counts(), time.perf_counter() - t0
+
+
+def phase_cli(attn, card, direct_step_ms: float):
+    """The port's CLI (`devias_tpu_torch.cli.run_slot_finetuning`) at full
+    width on synthetic clips: train one epoch of 4 steps, resume to a
+    second epoch, then --eval --eval_scene --run_knn on the trained
+    checkpoint with a scene teacher written from the port's seeded teacher.
+    Fails on a missing result file, a non-finite metric or K1 launch counts
+    other than the path's."""
+    from devias_tpu_torch.cli import run_slot_finetuning as cli
+    from devias_tpu_torch.eval import merge_results, parse_result_file
+    from devias_tpu_torch.nn import create_model
+
+    import cv2
+    import PIL
+
+    emit({"phase": "cli_host_libraries", "cv2": cv2.__version__, "PIL": PIL.__version__})
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "filelist")
+        os.makedirs(data)
+        for name, n in (("train.csv", CLI_TRAIN), ("val.csv", CLI_VAL), ("test.csv", CLI_TEST)):
+            with open(os.path.join(data, name), "w") as f:
+                f.write("\n".join(f"clip{i:03d}.mp4 {i % NUM_CLASSES}" for i in range(n)))
+        out, eval_out = os.path.join(tmp, "train"), os.path.join(tmp, "eval")
+        base = CLI_FLAGS + ["--data_path", data, "--output_dir", out]
+        runs = {}
+        for label, extra in (("train", ["--epochs", "1"]), ("resume", ["--epochs", "2", "--auto_resume"])):
+            result, counts, seconds = _cli_run(attn, cli, base + extra)
+            epoch = result["epochs"][-1]
+            runs[label] = {"seconds": seconds, "epochs_run": [e["epoch"] for e in result["epochs"]],
+                           "n_steps": epoch["n_steps"], "loop_s": epoch["loop_s"],
+                           "first_step_s": epoch["first_step_s"],
+                           "loop_ms_per_step": epoch["loop_s"] * 1e3 / epoch["n_steps"],
+                           # the steps after the first, whose batches the
+                           # prefetch had time to prepare
+                           "after_first_ms_per_step": (epoch["loop_s"] - epoch["first_step_s"]) * 1e3
+                           / (epoch["n_steps"] - 1),
+                           "final_top1": result["final_top1"], "launches": counts}
+        teacher_pth = os.path.join(tmp, "teacher.pth")
+        teacher = create_model("vit_base_patch16_224", seed=1, **TEACHER_KW)
+        torch.save({"model": {k: v.cpu() for k, v in teacher.state_dict().items()}}, teacher_pth)
+        del teacher
+        ckpt = os.path.join(out, "ckpt", "checkpoint-1.pth")
+        result, counts, seconds = _cli_run(attn, cli, CLI_FLAGS + [
+            "--data_path", data, "--output_dir", eval_out, "--eval", "--eval_scene", "--run_knn",
+            "--finetune", ckpt, "--scene_model_path", teacher_pth])
+        runs["eval"] = {"seconds": seconds, "launches": counts, "eval": result.get("eval"),
+                        "eval_scene": result.get("eval_scene"), "knn": result.get("knn")}
+        files = [os.path.join(out, "log.txt"), os.path.join(out, "test", "0.txt"), ckpt,
+                 os.path.join(eval_out, "test", "0.txt"), os.path.join(eval_out, "scene_test", "0.txt")]
+        missing = [f for f in files if not os.path.exists(f)]
+        if missing:
+            fail(f"the CLI left no {missing}")
+        with open(files[0]) as f:
+            records = [json.loads(line) for line in f if line.strip()]
+        rows = {d: len(parse_result_file(os.path.join(eval_out, d, "0.txt"))) for d in ("test", "scene_test")}
+        merged = {d: merge_results(os.path.join(eval_out, d), 1) for d in ("test", "scene_test")}
+    knn = runs["eval"]["knn"] or {}
+    numbers = [v for r in records for k, v in r.items() if k.startswith(("train_", "val_", "final_"))]
+    numbers += [v for m in merged.values() for v in m]
+    numbers += [v for cells in knn.values() for ks in cells.values() for pair in ks.values() for v in pair]
+    steps = runs["train"]["n_steps"]
+    clips = 2 * B  # --num_sample 2
+    row = {"phase": "cli", "card": card, "runs": runs, "log_records": len(records), "result_rows": rows,
+           "merged": merged, "knn_datasets": sorted(knn), "clips_per_step": clips,
+           "loop_ms_per_clip": {k: runs[k]["loop_ms_per_step"] / clips for k in ("train", "resume")},
+           "after_first_ms_per_clip": {k: runs[k]["after_first_ms_per_step"] / clips for k in ("train", "resume")},
+           "direct_step_ms_per_clip": direct_step_ms / B}
+    emit(row)
+    if runs["resume"]["epochs_run"] != [1] or runs["train"]["epochs_run"] != [0] or steps != 4:
+        fail(f"the CLI ran epochs {runs['train']['epochs_run']} then {runs['resume']['epochs_run']} ({steps} steps)")
+    if len(records) != 4 or set(knn) != {"HMDB51", "UCF101", "Diving-48"} or not numbers \
+            or not all(np.isfinite(v) for v in numbers):
+        fail(f"CLI results incomplete or not finite: {row}")
+    # K1 on the CLI's path: per train epoch 12 student stats forwards and
+    # backwards and 12 teacher forwards per step, 12 student forwards per
+    # validation batch and per test batch
+    val_b, test_b = -(-CLI_VAL // B), -(-CLI_TEST * 2 // B)
+    want_train = {"K1-fwd": 12 * (steps + val_b + test_b), "K1-fwd-stats": 12 * steps, "K1-bwd": 12 * steps}
+    # eval: --eval (student), --eval_scene (student + teacher), k-NN over
+    # three datasets' train and val lists (student + teacher)
+    knn_b = 3 * (-(-CLI_TRAIN // B) + -(-CLI_VAL // B))
+    want_eval = {"K1-fwd": 12 * test_b + 24 * test_b + 24 * knn_b}
+    for label, want in (("train", want_train), ("resume", want_train), ("eval", want_eval)):
+        got = {k: v for k, v in runs[label]["launches"].items() if v}
+        if got != want:
+            fail(f"CLI {label} launched {got}; want {want}")
+    return {name: sum(runs[k]["launches"][name] for k in runs) for name in runs["train"]["launches"]}
+
+
+# samples of the host-rate phase's epoch: 20 batches of 12, 480 clips, long
+# against the loader's head start (it submits a whole epoch at once)
+CLI_HOST_SAMPLES = 240
+
+
+def phase_cli_host_rate(card, direct_step_ms: float):
+    """The CLI's training loader alone, on the host: the dataset and loader
+    that `run_slot_finetuning` builds from CLI_FLAGS, over one epoch of
+    CLI_HOST_SAMPLES synthetic samples, nothing sent to the card. Reports
+    the clips per second it delivers over the whole epoch and after its
+    first batch, beside the clips per second of the direct train step."""
+    from devias_tpu_torch.cli import common
+    from devias_tpu_torch.cli import run_slot_finetuning as cli
+    from devias_tpu_torch.data import build_dataset
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "train.csv"), "w") as f:
+            f.write("\n".join(f"clip{i:03d}.mp4 {i % NUM_CLASSES}" for i in range(CLI_HOST_SAMPLES)))
+        args = cli.get_args(CLI_FLAGS + ["--data_path", tmp, "--output_dir", os.path.join(tmp, "out")])
+        dataset, _ = build_dataset(True, False, common.make_data_config(args))
+        loader = common.make_train_loader(dataset, args)
+        loader.set_epoch(0)
+        t0 = time.perf_counter()
+        arrivals, clips = [], []
+        try:
+            for batch in loader:
+                arrivals.append(time.perf_counter() - t0)
+                clips.append(batch["videos"].shape[0])
+        finally:
+            loader.close()
+    n = len(arrivals)
+    row = {"phase": "cli_host_rate", "card": card, "host_cpus": os.cpu_count(), "num_workers": args.num_workers,
+           "batches": n, "clips": sum(clips), "clip_shape": list(batch["videos"].shape[1:]),
+           "first_batch_s": arrivals[0], "epoch_s": arrivals[-1],
+           "clips_per_s": sum(clips) / arrivals[-1],
+           "clips_per_s_after_first": sum(clips[1:]) / (arrivals[-1] - arrivals[0]),
+           "direct_step_clips_per_s": B * 1e3 / direct_step_ms}
+    emit(row)
+    if n != CLI_HOST_SAMPLES // args.batch_size or set(clips) != {2 * args.batch_size}:
+        fail(f"the CLI's loader gave {n} batches of {sorted(set(clips))} clips")
 
 
 def main() -> int:
@@ -969,6 +1275,8 @@ def main() -> int:
     try:
         from devias_tpu_torch.kernels import _build as build
         from devias_tpu_torch.kernels import attention as attn
+        from devias_tpu_torch.kernels import patch_embed as pe
+        from devias_tpu_torch.kernels import slot_attention as sa
     except ImportError as exc:
         print(f"chip_smoke: cannot import the port ({exc}); run from the repository root", file=sys.stderr)
         return 1
@@ -980,13 +1288,19 @@ def main() -> int:
     q_kv_err, q_kv_timing = phase_kernel_q_kv(attn)
     phase_sp_compose(attn)
     hm_err, hm_timing = phase_kernel_head_major(attn)
+    sa_err, sa_timing = phase_kernel_slot_attention(sa)
+    pe_err, pe_timing = phase_kernel_patch_embed(pe)
+    # K4 and K5 lie on no path: their counts over the main paths below
+    sa.fused_slot_attention.launches = pe.patchify_embed.launches = 0
     eval_launches = phase_slice(attn, card)
-    train_launches = phase_train(attn, card)
+    train_launches, train_ms = phase_train(attn, card)
     phase_train_vs_plain(card)
     sp_launches = phase_sp_train(attn, card)
+    cli_launches = phase_cli(attn, card, train_ms)
+    phase_cli_host_rate(card, train_ms)
 
     def launches(name):
-        return train_launches[name] + sp_launches[name]
+        return train_launches[name] + sp_launches[name] + cli_launches[name]
 
     # K2 in the kernels line at the shape the one-card SP step gives it; the
     # four-shard shape beside it
@@ -1009,6 +1323,10 @@ def main() -> int:
          launches("K3-fwd"), hm_err["K3-fwd"], hm_timing["K3-fwd"]),
         ("K3-bwd attention_head_major_bwd", "attention_fwd.cu + attention_bwd.cu",
          "devias_tpu/kernels/attention.py:192", launches("K3-bwd"), hm_err["K3-bwd"], hm_timing["K3-bwd"]),
+        ("K4 fused_slot_attention", "slot_attention.cu", "devias_tpu/kernels/slot_attention.py:101",
+         sa.fused_slot_attention.launches, sa_err, sa_timing),
+        ("K5 patchify_embed", "patch_embed.cu", "scripts/retest_patchify_pallas.py:34",
+         pe.patchify_embed.launches, pe_err, pe_timing),
     )
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": " + ".join(f"devias_tpu_torch/kernels/csrc/{f}" for f in src.split(" + ")),

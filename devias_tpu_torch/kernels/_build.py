@@ -27,6 +27,8 @@ BUILD_DIR = _HERE / "_build"
 SOURCES = {
     "attention_fwd": CSRC / "attention_fwd.cu",
     "attention_bwd": CSRC / "attention_bwd.cu",
+    "slot_attention": CSRC / "slot_attention.cu",
+    "patch_embed": CSRC / "patch_embed.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -93,6 +93,17 @@ class FusedAdamW(torch.optim.Optimizer):
             self.state[p]["exp_avg"] = torch.zeros_like(p, dtype=torch.float32)
             self.state[p]["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
 
+    def state_dict(self) -> dict:
+        """torch's optimizer state dict plus the update count the schedules
+        and bias corrections read."""
+        return {**super().state_dict(), "count": self.count}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        state_dict = dict(state_dict)
+        count = int(state_dict.pop("count"))
+        super().load_state_dict(state_dict)
+        self.count = count
+
     @torch.no_grad()
     def step(self, closure=None) -> torch.Tensor:
         if closure is not None:
@@ -139,7 +150,8 @@ def make_optimizer(model: nn.Module, cfg: OptimConfig,
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     opt = cfg.opt.lower()
     if opt in ("adam", "sgd", "nesterov", "momentum"):
-        raise NotImplementedError(f"--opt {cfg.opt!r} is not ported yet; the port has adamw")
+        raise NotImplementedError(f"--opt {cfg.opt!r} is not ported yet (ROADMAP.md queue 1, item 4 of the "
+                                  "training slice's left-out list); the port has adamw")
     if opt != "adamw":
         raise ValueError(f"--opt {cfg.opt!r} is not supported (supported: adamw)")
     lr_fn = cosine_schedule(cfg.lr, cfg.min_lr, cfg.total_steps, cfg.warmup_steps, cfg.warmup_lr)

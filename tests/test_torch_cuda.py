@@ -228,3 +228,70 @@ def test_split_kernels_refuse_what_they_do_not_take(card):
         fused_attention(hm.transpose(1, 2), hm.transpose(1, 2), hm.transpose(1, 2), 0.125)
     with pytest.raises(ValueError, match="head dim"):
         fused_attention(hm[..., :32].contiguous(), hm[..., :32].contiguous(), hm[..., :32].contiguous(), 0.125)
+
+
+@pytest.mark.parametrize("N", [64, 100, 301])
+def test_slot_attention_kernel_matches_plain_version(card, N):
+    """K4 at a small width (D=128, 4 heads x 64) on bf16 inputs: out and
+    sim within chip_smoke.py's KERNEL_TOL of the f32 plain version's RMS,
+    the backward (autograd of the plain version) finite."""
+    from devias_tpu_torch.kernels import fused_slot_attention, slot_attention_reference
+
+    rng = np.random.default_rng(N)
+    shapes = ((2, 2, 128, 1.0), (2, N, 128, 1.0), (128, 256, 0.05), (128, 256, 0.05), (128, 256, 0.05),
+              (256, 128, 0.05), (128, 0.05))
+    xs = [torch.from_numpy((rng.normal(size=s[:-1]) * s[-1]).astype(np.float32)).to(card, torch.bfloat16)
+          for s in shapes]
+    leaves = [x.clone().requires_grad_() for x in xs]
+    before = fused_slot_attention.launches
+    out, sim = fused_slot_attention(*leaves, 4, 64)
+    torch.cuda.synchronize()
+    assert fused_slot_attention.launches == before + 1
+    assert out.shape == (2, 2, 128) and out.dtype == torch.bfloat16 and sim.shape == (2, 4, 2, N)
+    e_out, e_sim = slot_attention_reference(*(x.float() for x in xs), 4, 64)
+    assert (out.float() - e_out).abs().max().item() <= 0.04 * _rms(e_out)
+    assert (sim - e_sim).abs().max().item() <= 0.04 * _rms(e_sim)
+    (out.float().square().sum() + sim.square().sum()).backward()
+    assert all(torch.isfinite(x.grad).all() for x in leaves)
+
+
+def test_slot_attention_kernel_refuses_what_it_does_not_take(card):
+    from devias_tpu_torch.kernels import fused_slot_attention
+
+    xs = [torch.zeros(s, device=card) for s in ((1, 2, 128), (1, 9, 128), (128, 256), (128, 256), (128, 256),
+                                                (256, 128), (128,))]
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_slot_attention(*xs, 4, 64)
+    with pytest.raises(ValueError, match="dim_head"):
+        fused_slot_attention(*(x.bfloat16() for x in xs), 8, 32)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 48, 80, 3), (1, 2, 32, 32, 3)])
+def test_patch_embed_kernel_matches_plain_version(card, shape):
+    from devias_tpu_torch.kernels import patchify_embed
+    from devias_tpu_torch.kernels.patch_embed import patchify_embed_reference
+
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(card)
+    kernel = torch.from_numpy((rng.normal(size=(1536, 768)) * 0.025).astype(np.float32)).to(card, torch.bfloat16)
+    before = patchify_embed.launches
+    out = patchify_embed(x, kernel)
+    torch.cuda.synchronize()
+    assert patchify_embed.launches == before + 1
+    exact = patchify_embed_reference(x, kernel.float())
+    plain = patchify_embed_reference(x, kernel)
+    assert out.shape == plain.shape and out.dtype == torch.bfloat16
+    assert (out.float() - exact).abs().max().item() <= 0.04 * _rms(exact)
+    assert (out.float() - plain.float()).abs().max().item() <= 0.25 * _rms(exact)
+
+
+def test_patch_embed_kernel_refuses_what_it_does_not_take(card):
+    from devias_tpu_torch.kernels import patchify_embed
+
+    x, kernel = torch.zeros(1, 2, 32, 32, 3, device=card), torch.zeros(1536, 64, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="f32 clip"):
+        patchify_embed(x.bfloat16(), kernel)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        patchify_embed(x, torch.zeros(1536, 60, device=card, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        patchify_embed(x.transpose(2, 3), kernel)
