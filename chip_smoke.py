@@ -90,6 +90,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -153,7 +154,7 @@ TRAIN_WINDOW = 20
 PROFILE_STEPS = 2
 # kernel classes of the profile, by substring of the kernel's name, first match
 KERNEL_CLASSES = (
-    ("attention (port's K1 and K2 kernels)", ("attention_fwd_kernel", "attention_bwd_", "rowdot_kernel")),
+    ("attention (port's K1 and K2 kernels)", ("attention_fwd_kernel", "attention_bwd_")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "sm90_xmma", "cutlass", "gemv", "splitKreduce")),
     ("copy", ("Memcpy", "Memset", "copy_", "CatArrayBatched")),
     ("reduction", ("reduce_kernel", "Reduce", "softmax", "norm")),
@@ -226,7 +227,36 @@ def phase_device(build):
     emit({"phase": "device", "card": card, "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__, "cuda": torch.version.cuda,
           "kernel_build_s": build_s, "ptxas": ptxas})
+    sass = {name: sass_counts(build.library_path(name)) for name in build.SOURCES}
+    emit({"phase": "sass", "counts": sass})
+    for name in ("attention_fwd", "attention_bwd"):
+        if not (sass[name]["HGMMA"] and sass[name]["UTMALDG"]):
+            fail(f"{name} has no wgmma (HGMMA) or TMA load (UTMALDG) in its SASS: {sass[name]}")
     return card
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+
+
+def _cuobjdump() -> str:
+    """The toolkit's cuobjdump, or the copy Triton's package carries."""
+    for path in (shutil.which("cuobjdump"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")):
+        if path and os.path.exists(path):
+            return path
+    import triton
+    return os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin", "cuobjdump")
+
+
+def sass_counts(lib) -> dict:
+    """Instructions of each name in SASS_OPS in a built library's SASS
+    (`cuobjdump -sass`): wgmma (HGMMA), TMA loads (UTMALDG), mma.sync (HMMA)."""
+    out = subprocess.run([_cuobjdump(), "-sass", str(lib)], capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass {lib} exited {out.returncode}: {out.stderr.strip()[-400:]}")
+    ops = [ln.split("*/", 1)[1].split() for ln in out.stdout.splitlines() if "*/" in ln and "/*" in ln]
+    ops = [w[0] if not w[0].startswith("@") else (w[1] if len(w) > 1 else "") for w in ops if w]
+    return {name: sum(op.split(".")[0] == name for op in ops) for name in SASS_OPS}
 
 
 def _bound(flops: int, nbytes: int):

@@ -28,9 +28,13 @@ frozen teacher under `no_grad`) they run the no-stats forward. K3 has one
 forward; its Function saves (q, k, v, o) and its backward recomputes the
 statistics, as the TPU kernel does. Each wrapper launches its hand-written
 kernel on a CUDA tensor, or raises on what the kernel does not take (not
-bfloat16, head dim not 64, not contiguous or not 16-byte aligned), and runs
-its plain version on a CPU tensor; `m` and `l` are [B, H, Nq] float32.
-Each wrapper's `launches` counts its kernel launches.
+bfloat16, head dim not 64, a logit scale that is not a power of two, not
+contiguous or not 16-byte aligned), and runs its plain version on a CPU
+tensor; `m` and `l` are [B, H, Nq] float32. Each wrapper's `launches`
+counts its kernel launches. The kernels are built for Hopper from
+`csrc/hopper.cuh`: TMA loads into 128-byte-swizzled tiles, wgmma products
+and a producer warpgroup beside the consumer warpgroups; the backward is
+three launches (pre-pass, dq, dkdv) over scratch the wrapper allocates.
 
 What bounds the kernels on an H100 at the flagship shape (B=12, H=12,
 N=1568, D=64): a forward does 90.6 GFLOP of bf16 products (~92 us at
@@ -56,6 +60,7 @@ dtype.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Tuple
 
 import torch
@@ -116,6 +121,18 @@ def _bwd_heads(q, k, v, o, do, m, l, scale: float):
     dk = t.transpose(-1, -2) @ (q.float() * (inv_l * scale)).to(dt).float()
     dv = e.to(dt).float().transpose(-1, -2) @ (do * inv_l).to(dt).float()
     return dq, dk, dv
+
+
+def bwd_prepass_reference(q, o, do, l, scale: float):
+    """Plain version of the backward's pre-pass (`attention_bwd.cu`) on
+    head-major q, o, dO [B, H, N, D] and l [B, H, N]: Dr = rowsum(dO o) in
+    f32 and the bf16 operands of dk and dv, Qs = q (scale / l) and
+    dOs = dO / l rounded to the input dtype, by `_bwd_heads`' operations.
+    Returns Dr [B, H, N] and Qs, dOs [B, H, N, D]."""
+    dt = q.dtype
+    inv_l = (1.0 / l)[..., None]
+    d_row = (do.float() * o.float()).sum(dim=-1)
+    return d_row, (q.float() * (inv_l * scale)).to(dt), (do.float() * inv_l).to(dt)
 
 
 def attention_q_kv_reference(q: torch.Tensor, kv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
@@ -243,18 +260,28 @@ def _check_head_dim(D: int) -> None:
         raise ValueError(f"the attention kernels take head dim {HEAD_DIM}; got {D}")
 
 
-def _launch_dims(qkv: torch.Tensor, num_heads: int):
+def _check_scale(scale: float) -> None:
+    """The kernels fold the logit scale into the exponent's multiplier, which
+    equals rounding q * scale to bf16 only for a power of two (D^-0.5 at
+    D = 64 is 1/8)."""
+    if not (scale > 0 and math.frexp(scale)[0] == 0.5):
+        raise ValueError(f"the attention kernels take a logit scale that is a power of two; got {scale}")
+
+
+def _launch_dims(qkv: torch.Tensor, num_heads: int, scale: float):
     B, N, W3 = qkv.shape
     D = W3 // (3 * num_heads)
     _check_head_dim(D)
+    _check_scale(scale)
     _check_kernel_input("qkv", qkv, qkv.shape)
     return B, N, D
 
 
-def _launch_dims_q_kv(q: torch.Tensor, kv: torch.Tensor, num_heads: int):
+def _launch_dims_q_kv(q: torch.Tensor, kv: torch.Tensor, num_heads: int, scale: float):
     B, Nq, C = q.shape
     D = C // num_heads
     _check_head_dim(D)
+    _check_scale(scale)
     _check_kernel_input("q", q, q.shape)
     _check_kernel_input("kv", kv, kv.shape)
     return B, Nq, kv.shape[1], D
@@ -272,13 +299,25 @@ def _stats_like(B: int, H: int, N: int, device):
     return m, torch.empty_like(m)
 
 
+# q rows of the backward's dkdv tiles, to which its row scratch is padded
+_BWD_Q_ROWS = 64
+
+
+def _bwd_scratch(B: int, H: int, Nq: int, D: int, device):
+    """The backward's scratch: rows [2, B, H, Nq_pad] f32 (m log2 e and Dr,
+    padded to whole dkdv tiles) and ops [2, B, H, Nq, D] bf16 (Qs, dOs)."""
+    pad = -(-Nq // _BWD_Q_ROWS) * _BWD_Q_ROWS
+    return (torch.empty((2, B, H, pad), dtype=torch.float32, device=device),
+            torch.empty((2, B, H, Nq, D), dtype=torch.bfloat16, device=device))
+
+
 # ---------------------------------------------------------------- K1
 
 
 def _fwd_no_stats(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
     if qkv.device.type == "cpu":
         return attention_qkv_reference(qkv, num_heads, scale)
-    B, N, D = _launch_dims(qkv, num_heads)
+    B, N, D = _launch_dims(qkv, num_heads, scale)
     out = torch.empty((B, N, num_heads * D), dtype=qkv.dtype, device=qkv.device)
     _run(_fn("attention_fwd", "devias_attention_qkv_fwd", 2), qkv.device,
          qkv.data_ptr(), out.data_ptr(), B, N, num_heads, D, float(scale))
@@ -294,7 +333,7 @@ def attention_qkv_fwd_stats(qkv: torch.Tensor, num_heads: int,
     _check_qkv(qkv, num_heads)
     if qkv.device.type == "cpu":
         return attention_qkv_fwd_stats_reference(qkv, num_heads, scale)
-    B, N, D = _launch_dims(qkv, num_heads)
+    B, N, D = _launch_dims(qkv, num_heads, scale)
     out = torch.empty((B, N, num_heads * D), dtype=qkv.dtype, device=qkv.device)
     m, l = _stats_like(B, num_heads, N, qkv.device)
     _run(_fn("attention_fwd", "devias_attention_qkv_fwd_stats", 4), qkv.device,
@@ -311,15 +350,15 @@ def attention_qkv_bwd(qkv: torch.Tensor, o: torch.Tensor, do: torch.Tensor, m: t
     _check_qkv(qkv, num_heads)
     if qkv.device.type == "cpu":
         return attention_qkv_bwd_reference(qkv, o, do, m, l, num_heads, scale)
-    B, N, D = _launch_dims(qkv, num_heads)
+    B, N, D = _launch_dims(qkv, num_heads, scale)
     for name, t in (("o", o), ("do", do)):
         _check_kernel_input(name, t, (B, N, num_heads * D))
     for name, t in (("m", m), ("l", l)):
         _check_kernel_input(name, t, (B, num_heads, N), torch.float32)
     dqkv = torch.empty_like(qkv)
-    scratch = torch.empty((B, num_heads, N), dtype=torch.float32, device=qkv.device)
-    _run(_fn("attention_bwd", "devias_attention_qkv_bwd", 7), qkv.device,
-         qkv.data_ptr(), o.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(), scratch.data_ptr(),
+    rows, ops = _bwd_scratch(B, num_heads, N, D, qkv.device)
+    _run(_fn("attention_bwd", "devias_attention_qkv_bwd", 8), qkv.device,
+         qkv.data_ptr(), o.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(), rows.data_ptr(), ops.data_ptr(),
          dqkv.data_ptr(), B, N, num_heads, D, float(scale))
     attention_qkv_bwd.launches += 1
     return dqkv
@@ -364,7 +403,7 @@ def fused_attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float) -> torc
 def _q_kv_no_stats(q: torch.Tensor, kv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
     if q.device.type == "cpu":
         return attention_q_kv_reference(q, kv, num_heads, scale)
-    B, Nq, Nk, D = _launch_dims_q_kv(q, kv, num_heads)
+    B, Nq, Nk, D = _launch_dims_q_kv(q, kv, num_heads, scale)
     out = torch.empty_like(q)
     _run(_fn("attention_fwd", "devias_attention_q_kv_fwd", 3, 5), q.device,
          q.data_ptr(), kv.data_ptr(), out.data_ptr(), B, Nq, Nk, num_heads, D, float(scale))
@@ -381,7 +420,7 @@ def attention_q_kv_fwd_stats(q: torch.Tensor, kv: torch.Tensor, num_heads: int,
     _check_q_kv(q, kv, num_heads)
     if _check_device(q, kv):
         return attention_q_kv_fwd_stats_reference(q, kv, num_heads, scale)
-    B, Nq, Nk, D = _launch_dims_q_kv(q, kv, num_heads)
+    B, Nq, Nk, D = _launch_dims_q_kv(q, kv, num_heads, scale)
     out = torch.empty_like(q)
     m, l = _stats_like(B, num_heads, Nq, q.device)
     _run(_fn("attention_fwd", "devias_attention_q_kv_fwd_stats", 5, 5), q.device,
@@ -399,16 +438,16 @@ def attention_q_kv_bwd(q: torch.Tensor, kv: torch.Tensor, o: torch.Tensor, do: t
     _check_q_kv(q, kv, num_heads)
     if _check_device(q, kv):
         return attention_q_kv_bwd_reference(q, kv, o, do, m, l, num_heads, scale)
-    B, Nq, Nk, D = _launch_dims_q_kv(q, kv, num_heads)
+    B, Nq, Nk, D = _launch_dims_q_kv(q, kv, num_heads, scale)
     for name, t in (("o", o), ("do", do)):
         _check_kernel_input(name, t, q.shape)
     for name, t in (("m", m), ("l", l)):
         _check_kernel_input(name, t, (B, num_heads, Nq), torch.float32)
     dq, dkv = torch.empty_like(q), torch.empty_like(kv)
-    scratch = torch.empty((B, num_heads, Nq), dtype=torch.float32, device=q.device)
-    _run(_fn("attention_bwd", "devias_attention_q_kv_bwd", 9, 5), q.device,
-         q.data_ptr(), kv.data_ptr(), o.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(), scratch.data_ptr(),
-         dq.data_ptr(), dkv.data_ptr(), B, Nq, Nk, num_heads, D, float(scale))
+    rows, ops = _bwd_scratch(B, num_heads, Nq, D, q.device)
+    _run(_fn("attention_bwd", "devias_attention_q_kv_bwd", 10, 5), q.device,
+         q.data_ptr(), kv.data_ptr(), o.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(), rows.data_ptr(),
+         ops.data_ptr(), dq.data_ptr(), dkv.data_ptr(), B, Nq, Nk, num_heads, D, float(scale))
     attention_q_kv_bwd.launches += 1
     return dq, dkv
 
@@ -458,6 +497,7 @@ def _head_major_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
         return attention_head_major_reference(q, k, v, scale)
     B, H, N, D = q.shape
     _check_head_dim(D)
+    _check_scale(scale)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_kernel_input(name, t, q.shape)
     out = torch.empty_like(q)
@@ -479,16 +519,17 @@ def attention_head_major_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
         return attention_head_major_bwd_reference(q, k, v, o, do, scale)
     B, H, N, D = q.shape
     _check_head_dim(D)
+    _check_scale(scale)
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         _check_kernel_input(name, t, q.shape)
     m, l = _stats_like(B, H, N, q.device)
-    scratch = torch.empty_like(m)
+    rows, ops = _bwd_scratch(B, H, N, D, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _run(_fn("attention_fwd", "devias_attention_head_major_stats", 4), q.device,
          q.data_ptr(), k.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, N, D, float(scale))
-    _run(_fn("attention_bwd", "devias_attention_head_major_bwd", 11), q.device,
+    _run(_fn("attention_bwd", "devias_attention_head_major_bwd", 12), q.device,
          q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(),
-         scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, N, D, float(scale))
+         rows.data_ptr(), ops.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, N, D, float(scale))
     attention_head_major_bwd.launches += 1
     return dq, dk, dv
 

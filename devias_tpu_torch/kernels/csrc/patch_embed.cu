@@ -22,7 +22,7 @@
 // could not lower ([TB, h, P, w, P, C] -> [196, 1536] in VMEM) is only an
 // address computation here. Tokens past the last one are read as zeros and
 // not written.
-#include "attention_common.cuh"
+#include "mma_sync.cuh"
 
 namespace k5 {
 

@@ -39,7 +39,7 @@
 //      thread per output.
 // The TPU padded ctx to a multiple of 256 keys for its 128-lane sim blocks;
 // here the last tile's keys past N are masked instead.
-#include "attention_common.cuh"
+#include "mma_sync.cuh"
 
 namespace k4 {
 

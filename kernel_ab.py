@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Time the K1 attention kernels of two checkouts of this repository in
-turns on one NVIDIA GPU.
+"""Time the attention kernels of two checkouts of this repository in turns
+on one NVIDIA GPU.
 
     python3 kernel_ab.py OTHER_CHECKOUT [ROUNDS]
 
 Runs OTHER, this checkout, this checkout, OTHER (ROUNDS times, default 1),
-each in a fresh process that builds that checkout's kernels and times
-K1-fwd, K1-fwd stats and K1-bwd at B=12, H=12, N=1568, D=64 in bf16 with
-CUDA events (100 launches after 5 of warm-up), and K1-bwd's three kernels
-(rowdot, dq, dkdv) under `torch.profiler` (20 launches). Prints the card's name and
-power limit, one JSON line per process, and a last JSON line with each
-checkout's mean ms per kernel. Two versions of a kernel are compared only
-within one such call, on one card.
+each in a fresh process that builds that checkout's kernels and times, in
+bf16 at B=12, H=12, D=64 with CUDA events (100 launches after 5 of warm-up):
+K1-fwd, K1-fwd stats and K1-bwd at N=1568; K2-fwd, K2-fwd stats and K2-bwd
+at (Nq, Nk) = (392, 1568) and (1568, 1568); K3-fwd and K3-bwd at N=1568.
+K1-bwd's launches (rowdot or prepass, dq, dkdv) are split under
+`torch.profiler` (20 launches). Prints the card's name and power limit, one
+JSON line per process, and a last JSON line with each checkout's mean ms
+per kernel. Two versions of a kernel are compared only within one such
+call, on one card. OTHER is typically the parent commit unpacked with
+`git archive` into a directory that `.gitignore` lists (`_archive/`).
 """
+
 
 from __future__ import annotations
 
@@ -46,19 +50,34 @@ def time_ms(fn, iters=100, warmup=5):
     end.synchronize()
     return start.elapsed_time(end) / iters
 
+S = D ** -0.5
 out = {
-    "K1-fwd": time_ms(lambda: attn.fused_attention_qkv(qkv, H, D ** -0.5)),
-    "K1-fwd-stats": time_ms(lambda: attn.attention_qkv_fwd_stats(qkv, H, D ** -0.5)),
-    "K1-bwd": time_ms(lambda: attn.attention_qkv_bwd(qkv, o, do, m, l, H, D ** -0.5)),
+    "K1-fwd": time_ms(lambda: attn.fused_attention_qkv(qkv, H, S)),
+    "K1-fwd-stats": time_ms(lambda: attn.attention_qkv_fwd_stats(qkv, H, S)),
+    "K1-bwd": time_ms(lambda: attn.attention_qkv_bwd(qkv, o, do, m, l, H, S)),
 }
-# K1-bwd's three kernels, device ms per launch under torch.profiler
+for Nq, Nk in ((392, 1568), (1568, 1568)):
+    q = torch.from_numpy(rng.standard_normal((B, Nq, H * D), dtype=np.float32)).to("cuda", torch.bfloat16)
+    kv = torch.from_numpy(rng.standard_normal((B, Nk, 2 * H * D), dtype=np.float32)).to("cuda", torch.bfloat16)
+    dq_o = torch.from_numpy(rng.standard_normal((B, Nq, H * D), dtype=np.float32)).to("cuda", torch.bfloat16)
+    o2, m2, l2 = attn.attention_q_kv_fwd_stats(q, kv, H, S)
+    out[f"K2-fwd {Nq}x{Nk}"] = time_ms(lambda: attn.fused_attention_q_kv(q, kv, H, S))
+    out[f"K2-fwd-stats {Nq}x{Nk}"] = time_ms(lambda: attn.attention_q_kv_fwd_stats(q, kv, H, S))
+    out[f"K2-bwd {Nq}x{Nk}"] = time_ms(lambda: attn.attention_q_kv_bwd(q, kv, o2, dq_o, m2, l2, H, S))
+    del q, kv, dq_o, o2, m2, l2
+hq, hk, hv, hdo = (torch.from_numpy(rng.standard_normal((B, H, N, D), dtype=np.float32)).to("cuda", torch.bfloat16)
+                   for _ in range(4))
+ho = attn.fused_attention(hq, hk, hv, S)
+out["K3-fwd"] = time_ms(lambda: attn.fused_attention(hq, hk, hv, S))
+out["K3-bwd"] = time_ms(lambda: attn.attention_head_major_bwd(hq, hk, hv, ho, hdo, S))
+# K1-bwd's launches, device ms per launch under torch.profiler
 from torch.profiler import ProfilerActivity, profile
 with profile(activities=[ProfilerActivity.CUDA]) as prof:
     for _ in range(20):
-        attn.attention_qkv_bwd(qkv, o, do, m, l, H, D ** -0.5)
+        attn.attention_qkv_bwd(qkv, o, do, m, l, H, S)
     torch.cuda.synchronize()
 for e in prof.key_averages():
-    for part in ("rowdot", "dq_kernel", "dkdv_kernel"):
+    for part in ("rowdot", "prepass", "dq_kernel", "dkdv_kernel"):
         if part in e.key and e.device_time_total > 0:
             out["K1-bwd " + part] = e.device_time_total / e.count / 1e3
 print(json.dumps(out))
@@ -86,7 +105,7 @@ def main() -> int:
             times = json.loads(out.stdout.strip().splitlines()[-1])
             runs[label].append(times)
             print(json.dumps({"checkout": label, "root": root, **times}), flush=True)
-    print(json.dumps({label: {k: sum(t.get(k, 0.0) for t in ts) / len(ts) for k in ts[0]}
+    print(json.dumps({label: {k: sum(t[k] for t in ts) / len(ts) for k in ts[0]}
                       for label, ts in runs.items()}))
     return 0
 

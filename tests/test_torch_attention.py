@@ -97,11 +97,17 @@ def test_wrapper_takes_plain_version_on_cpu_without_counting():
     assert out.shape == (2, 9, 4 * 64)
 
 
-def _emulate_kernel(qkv, H, scale, tile=64, mask_ragged_keys=True):
+# keys per K/V tile of the CUDA kernels (`kKTile` of attention_fwd.cu,
+# `kBlock` of attention_bwd.cu): N = 1568 leaves a 32-key tail, 1569 a 33-key
+# one, 77 a single ragged tile
+KEY_TILE = 128
+
+
+def _emulate_kernel(qkv, H, scale, tile=KEY_TILE, mask_ragged_keys=True):
     """The CUDA kernel's rounding in float32 on the CPU: q scaled in bf16,
     logits in f32, exp(s - m) rounded to bf16 and summed as rounded, the
     output rounded to bf16. With `mask_ragged_keys=False` the zero-filled
-    keys past N in the last 64-key tile count as logits of 0, the fault
+    keys past N in the last 128-key tile count as logits of 0, the fault
     the smoke's tolerance must catch."""
     B, N, _ = qkv.shape
     q, k, v = qkv.float().view(B, N, 3, H, -1).permute(2, 0, 3, 1, 4)
@@ -162,7 +168,7 @@ def test_smoke_bwd_tolerance_catches_unmasked_ragged_tiles(N):
     exact = _exact_grad(qkv, do, H, scale)
     o, m, l = attention_qkv_fwd_stats_reference(qkv, H, scale)
     good = max(bwd_errors(attention_qkv_bwd_reference(qkv, o, do, m, l, H, scale), exact, exact))
-    pad = -N % 64
+    pad = -N % KEY_TILE
     tail_qkv = torch.from_numpy(rng.standard_normal((1, pad, 3 * H * D), dtype=np.float32)).bfloat16()
     tail_do = torch.from_numpy(rng.standard_normal((1, pad, H * D), dtype=np.float32)).bfloat16()
     bad_grad = _exact_grad(torch.cat([qkv, tail_qkv], 1), torch.cat([do, tail_do], 1), H, scale)[:, :N]
@@ -182,13 +188,63 @@ def test_smoke_stats_tolerance_catches_unmasked_ragged_keys(N):
     qkv = torch.from_numpy(rng.standard_normal((1, N, 3 * H * D), dtype=np.float32)).bfloat16()
     _, m, l = attention_qkv_fwd_stats_reference(qkv, H, D ** -0.5)
     _, em, el = attention_qkv_fwd_stats_reference(qkv.float(), H, D ** -0.5)
-    padded = torch.cat([qkv, torch.zeros(1, -N % 64, 3 * H * D).bfloat16()], 1)
+    padded = torch.cat([qkv, torch.zeros(1, -N % KEY_TILE, 3 * H * D).bfloat16()], 1)
     _, _, bl = attention_qkv_fwd_stats_reference(padded, H, D ** -0.5)
     rms = el.square().mean().sqrt().item()
     assert (m - em).abs().max().item() <= STATS_M_TOL * em.square().mean().sqrt().item()
     good = (l - el).abs().max().item() / rms
     bad = (bl[..., :N] - el).abs().max().item() / rms
     assert good < STATS_L_TOL < bad / 2, (good, bad)
+
+
+def test_power_of_two_scale_folds_exactly():
+    """The kernels fold the logit scale into the exponent's multiplier
+    instead of rounding q * scale to bf16. At scale = 1/8 (D^-0.5 at D = 64)
+    that rounding changes no element, and the logits bf16(q scale) k^T and
+    (q k^T) scale, then times log2 e, agree bit for bit: the CPU product
+    sums both in one order, and a power of two commutes with every rounding.
+    A scale that is not a power of two is refused before any launch."""
+    from devias_tpu_torch.kernels.attention import _check_scale
+
+    rng = np.random.default_rng(3)
+    q, k = (torch.from_numpy(rng.standard_normal((2, 3, 77, 64), dtype=np.float32)).bfloat16() for _ in range(2))
+    scale, log2e = 64 ** -0.5, 1.4426950408889634
+    torch.testing.assert_close((q * scale).float(), q.float() * scale, rtol=0, atol=0)
+    tpu = (q * scale).float() @ k.float().transpose(-1, -2)
+    folded = q.float() @ k.float().transpose(-1, -2)
+    torch.testing.assert_close(folded * scale, tpu, rtol=0, atol=0)
+    torch.testing.assert_close(folded * (scale * log2e), tpu * log2e, rtol=0, atol=0)
+    _check_scale(scale)
+    _check_scale(0.25)
+    for bad in (0.2, 0.0, -0.125):
+        with pytest.raises(ValueError, match="power of two"):
+            _check_scale(bad)
+
+
+@pytest.mark.parametrize("N", [77, 128])
+def test_bwd_prepass_operands_are_the_ones_bwd_heads_rounds(N):
+    """The backward's pre-pass writes Dr, Qs = bf16(q scale / l) and
+    dOs = bf16(dO / l) once, and the dq and dkdv kernels only read them.
+    Its plain form gives exactly the operands `_bwd_heads` rounds: dk = t^T
+    Qs and dv = e^T dOs rebuilt from them, and dq from t with its Dr, equal
+    `_bwd_heads`' gradients bit for bit."""
+    from devias_tpu_torch.kernels.attention import _bwd_heads, _fwd_stats_heads, bwd_prepass_reference
+
+    H, D, scale = 3, 64, 0.125
+    rng = np.random.default_rng(N)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, H, N, D), dtype=np.float32)).bfloat16()
+                   for _ in range(4))
+    o, m, l = _fwd_stats_heads(q, k, v, scale, round_l=True)
+    o = o.bfloat16()
+    dq, dk, dv = _bwd_heads(q, k, v, o, do, m, l, scale)
+    dr, qs, dos = bwd_prepass_reference(q, o, do, l, scale)
+    assert dr.shape == (2, H, N) and dr.dtype == torch.float32
+    assert qs.dtype == dos.dtype == torch.bfloat16 and qs.shape == dos.shape == q.shape
+    e = torch.exp((q * scale).float() @ k.float().transpose(-1, -2) - m[..., None])
+    t = (e * (do.float() @ v.float().transpose(-1, -2) - dr[..., None])).bfloat16().float()
+    torch.testing.assert_close(t.transpose(-1, -2) @ qs.float(), dk, rtol=0, atol=0)
+    torch.testing.assert_close(e.bfloat16().float().transpose(-1, -2) @ dos.float(), dv, rtol=0, atol=0)
+    torch.testing.assert_close((t @ k.float()) * ((1.0 / l)[..., None] * scale), dq, rtol=0, atol=0)
 
 
 def test_library_hash_covers_included_headers(tmp_path, monkeypatch):

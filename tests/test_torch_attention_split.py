@@ -147,6 +147,11 @@ def test_head_major_is_exported_and_rejects_bad_shapes():
 # ------------------------------------------------------------ smoke tolerances
 
 
+# keys per K/V tile of the forward and of the backward's dq kernel, and q
+# rows per tile of its dkdv kernel (attention_fwd.cu, attention_bwd.cu)
+KEY_TILE, DKDV_Q_ROWS = 128, 64
+
+
 def _pad_rows(x, rows, rng):
     """x [B, N, W] with `rows` N(0, 1) rows appended: what lies beyond a
     ragged tail in memory, read by a kernel that does not mask it."""
@@ -158,11 +163,11 @@ def _emulate_q_kv(q, kv, H, scale, mask_ragged_keys=True):
     """The CUDA kernel's forward rounding on the CPU: q scaled in bf16,
     logits in f32, exp(s - m) rounded to bf16 and summed as rounded, the
     output rounded to bf16. With `mask_ragged_keys=False` the zero-filled
-    keys past Nk in the last 64-key tile count as logits of 0."""
+    keys past Nk in the last 128-key tile count as logits of 0."""
     qh = attn._heads(q.float(), H)
     k, v = attn._split_heads(kv.float(), 2, H)
     s = (qh.bfloat16() * scale).float() @ k.transpose(-1, -2)
-    pad = 0 if mask_ragged_keys else -kv.shape[1] % 64
+    pad = 0 if mask_ragged_keys else -kv.shape[1] % KEY_TILE
     s = torch.cat([s, s.new_zeros(*s.shape[:-1], pad)], -1)
     v = torch.cat([v, v.new_zeros(*v.shape[:2], pad, v.shape[-1])], -2)
     e = torch.exp(s - s.amax(-1, keepdim=True)).bfloat16().float()
@@ -212,11 +217,11 @@ def test_smoke_bwd_tolerance_catches_unmasked_ragged_tails_q_kv(tail):
     o, m, l = attn.attention_q_kv_fwd_stats_reference(q, kv, H, scale)
     good = max(q_kv_bwd_errors(attn.attention_q_kv_bwd_reference(q, kv, o, do, m, l, H, scale), exact, exact))
     if tail == "queries":
-        pad = -Nq % 64
+        pad = -Nq % DKDV_Q_ROWS
         dq, dkv = _exact_q_kv_grad(_pad_rows(q, pad, rng), kv, _pad_rows(do, pad, rng), H, scale)
         bad = min(q_kv_bwd_errors((dq[:, :Nq], dkv), exact, exact)[1:])  # dk, dv
     else:
-        dq, dkv = _exact_q_kv_grad(q, _pad_rows(kv, -Nk % 64, rng), do, H, scale)
+        dq, dkv = _exact_q_kv_grad(q, _pad_rows(kv, -Nk % KEY_TILE, rng), do, H, scale)
         bad = q_kv_bwd_errors((dq, dkv[:, :Nk]), exact, exact)[0]  # dq
     assert good < BWD_TOL < bad / 10, (good, bad)
 
@@ -242,5 +247,5 @@ def test_smoke_tolerance_catches_unmasked_ragged_keys_head_major():
         return ((e.bfloat16().float() @ vv) / e.sum(-1, keepdim=True)).bfloat16().float()
 
     good = (emulate(0) - exact).abs().max().item() / rms
-    bad = (emulate(-N % 64) - exact).abs().max().item() / rms
+    bad = (emulate(-N % KEY_TILE) - exact).abs().max().item() / rms
     assert good < KERNEL_TOL < bad / 1.5, (good, bad)

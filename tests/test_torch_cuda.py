@@ -45,7 +45,11 @@ def _inputs(card, B, N, H, seed):
     return qkv, do
 
 
-SHAPES = [(2, 64, 2), (2, 77, 3), (1, 1569, 12), (3, 9, 1)]
+# (B, N, H): each edge of the kernels' 128-row tiles (under one tile, one
+# short of it, exactly one, one over), the student's 1568 and the teacher's
+# 1569 tokens, and the small shapes
+SHAPES = [(2, 64, 2), (2, 77, 3), (1, 1569, 12), (3, 9, 1), (2, 127, 2), (2, 128, 2), (1, 129, 3),
+          (1, 1568, 12)]
 
 
 @pytest.mark.parametrize("B,N,H", SHAPES)
@@ -210,6 +214,43 @@ def test_head_major_kernels_match_plain_versions(card, B, H, N):
     grads_exact = attention_head_major_bwd_reference(q.float(), k.float(), v.float(), exact, do.float(), 0.125)
     assert max(grad_errors(grads, want, grads_exact)) <= BWD_TOL
     assert max(grad_errors(grads, grads_exact, grads_exact)) <= BWD_TOL
+
+
+def test_backward_kernels_are_deterministic(card):
+    """Every output tile of the backward has one owner and no atomics: two
+    runs of K1-bwd, K2-bwd and K3-bwd on the same inputs are bitwise equal."""
+    qkv, do = _inputs(card, 2, 1569, 12, 9)
+    o, m, l = attention_qkv_fwd_stats(qkv, 12, 0.125)
+    first = attention_qkv_bwd(qkv, o, do, m, l, 12, 0.125)
+    assert torch.equal(first, attention_qkv_bwd(qkv, o, do, m, l, 12, 0.125))
+    q, kv, dq_o = _normal(card, (2, 392, 12 * 64), 1), _normal(card, (2, 1568, 24 * 64), 2), _normal(card, (2, 392, 12 * 64), 3)
+    o, m, l = attention_q_kv_fwd_stats(q, kv, 12, 0.125)
+    first = attention_q_kv_bwd(q, kv, o, dq_o, m, l, 12, 0.125)
+    again = attention_q_kv_bwd(q, kv, o, dq_o, m, l, 12, 0.125)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    q, k, v, dh = (_normal(card, (2, 3, 77, 64), 10 + i) for i in range(4))
+    out = fused_attention(q, k, v, 0.125)
+    first = attention_head_major_bwd(q, k, v, out, dh, 0.125)
+    again = attention_head_major_bwd(q, k, v, out, dh, 0.125)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_kernels_refuse_a_scale_that_is_not_a_power_of_two(card):
+    """The kernels fold the logit scale into the exponent, which is exact
+    only for a power of two; any other scale is refused before a launch."""
+    qkv = torch.zeros(1, 8, 3 * 2 * 64, device=card, dtype=torch.bfloat16)
+    hm = torch.zeros(1, 2, 8, 64, device=card, dtype=torch.bfloat16)
+    before = fused_attention_qkv.launches
+    with pytest.raises(ValueError, match="power of two"):
+        fused_attention_qkv(qkv, 2, 0.2)
+    with pytest.raises(ValueError, match="power of two"):
+        attention_qkv_fwd_stats(qkv, 2, 0.1)
+    with pytest.raises(ValueError, match="power of two"):
+        fused_attention_q_kv(qkv[..., :128].contiguous(), qkv[..., 128:].contiguous(), 2, 0.3)
+    with pytest.raises(ValueError, match="power of two"):
+        fused_attention(hm, hm, hm, 0.2)
+    assert fused_attention_qkv.launches == before
 
 
 def test_split_kernels_refuse_what_they_do_not_take(card):
