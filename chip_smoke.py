@@ -34,7 +34,9 @@ prints one JSON line, and the first failure exits non-zero:
    D=768, 4 heads x 512) over N = 1568 and 301 keys, out and sim within
    PLAIN_TOL of the bf16 plain version and KERNEL_TOL of the f32 one, the
    Function's backward within BWD_TOL of autograd of the f32 plain
-   version, timed at 1568 (no single PyTorch call computes K4).
+   version, timed at 1568 warm (ctx left in L2 by the launch before, as in
+   the tied agg rounds) and cold (L2 flushed by a 64 MB write before each
+   launch); no single PyTorch call computes K4.
    kernel_patch_embed: K5 (`patchify_embed`) at [12, 16, 224, 224, 3] and
    the ragged [2, 4, 48, 80, 3], within PLAIN_TOL and KERNEL_TOL, timed at
    the first with patchify + a bf16 matmul as the yardstick.
@@ -79,8 +81,10 @@ prints one JSON line, and the first failure exits non-zero:
    K1-fwd, 48 K1-fwd stats and 48 K1-bwd per train run, 432 K1-fwd in the
    evaluation); the loop's ms per step on the host clock (over the epoch,
    and over the steps after the first, whose batches were prefetched)
-   beside the direct step's; fails on a missing result file or a
-   non-finite metric.
+   beside the direct step's; then the README's `--smoke_tiny` command on
+   the card (64 wide, 4 heads: head dim 16, so K1 stays off and no kernel
+   launches). Fails on a missing result file, a non-finite metric or
+   launch counts other than these.
 
 Then one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 Exits non-zero, printing no result, without CUDA or without the port.
@@ -103,6 +107,7 @@ import torch.nn.functional as F
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet).
 BF16_PEAK = 989e12
+FP32_PEAK = 67e12  # float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 # Published special-function rate of the H100 SXM (FlashAttention-3 paper,
 # Shah et al. 2024): the ceiling on exponentials per second.
@@ -229,7 +234,7 @@ def phase_device(build):
           "kernel_build_s": build_s, "ptxas": ptxas})
     sass = {name: sass_counts(build.library_path(name)) for name in build.SOURCES}
     emit({"phase": "sass", "counts": sass})
-    for name in ("attention_fwd", "attention_bwd"):
+    for name in ("attention_fwd", "attention_bwd", "patch_embed"):
         if not (sass[name]["HGMMA"] and sass[name]["UTMALDG"]):
             fail(f"{name} has no wgmma (HGMMA) or TMA load (UTMALDG) in its SASS: {sass[name]}")
     return card
@@ -259,8 +264,8 @@ def sass_counts(lib) -> dict:
     return {name: sum(op.split(".")[0] == name for op in ops) for name in SASS_OPS}
 
 
-def _bound(flops: int, nbytes: int):
-    t_ops, t_bytes = flops / BF16_PEAK * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+def _bound(flops: int, nbytes: int, peak: float = BF16_PEAK):
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops, nbytes
 
 
@@ -629,14 +634,38 @@ SLOT_ATTN_N = (1568, 301)
 
 
 def slot_attention_bound(N: int):
-    """K4: the q, k, v products (2BD·inner each over S, N, N rows), q·k^T
-    and a·v (2B·heads·S·N·dh each) and the output product; x, ctx, the four
-    weights and bo read once, out and sim written once."""
+    """K4, the least work these inputs need: the factorised form, in which k
+    and v are never formed (`csrc/slot_attention.cu`). The logits ctx·u and
+    c = a·ctx (2B·heads·S·N·D each) and the four projections q = x wq,
+    u = scale wk_h q_h^T, num = c wv_h and o wo (2B·S·D·inner each), f32
+    FMAs on the FP32 pipe; x, ctx, the four weights and bo read once, out
+    and sim written once."""
     D, inner = AGG_DIM, AGG_HEADS * AGG_DIM_HEAD
-    flops = 2 * B * (SLOTS + 2 * N) * D * inner + 4 * B * AGG_HEADS * SLOTS * N * AGG_DIM_HEAD \
-        + 2 * B * SLOTS * inner * D
+    flops = 4 * B * AGG_HEADS * SLOTS * N * D + 8 * B * SLOTS * D * inner
     nbytes = 2 * (B * SLOTS * D + B * N * D + 4 * D * inner + D + B * SLOTS * D) + 4 * B * AGG_HEADS * SLOTS * N
-    return _bound(flops, nbytes)
+    return _bound(flops, nbytes, FP32_PEAK)
+
+
+# bytes written between K4's launches when it is timed with L2 cold (the
+# card's L2 holds 50 MB)
+L2_FLUSH_BYTES = 64 * 2 ** 20
+
+
+def time_cold_ms(fn, iters: int = 50) -> float:
+    """ms of `fn` per launch with L2 flushed before each: a 64 MB write,
+    then CUDA events around `fn` alone, summed over `iters` launches."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
 
 
 def _slot_inputs(N: int, seed: int):
@@ -692,11 +721,15 @@ def phase_kernel_slot_attention(sa):
         if N == SLOT_ATTN_N[0]:
             bound_ms, bound_by, flops, nbytes = slot_attention_bound(N)
             with torch.no_grad():
-                row.update(ms=time_ms(lambda: sa.fused_slot_attention(*inputs, AGG_HEADS, AGG_DIM_HEAD), 20),
+                # warm: ctx (28.9 MB) stays in L2 across launches, as in the
+                # tied agg rounds that reuse it; the kernels line carries it
+                row.update(ms=time_ms(lambda: sa.fused_slot_attention(*inputs, AGG_HEADS, AGG_DIM_HEAD), 200),
+                           cold_ms=time_cold_ms(lambda: sa.fused_slot_attention(*inputs, AGG_HEADS, AGG_DIM_HEAD)),
                            plain_ms=time_ms(lambda: sa.slot_attention_reference(*inputs, AGG_HEADS, AGG_DIM_HEAD), 5),
                            library_ms=None, library_call="none: no single PyTorch call computes K4",
                            bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes)
             row["tflops"] = flops / row["ms"] / 1e9
+            row["bound_share"] = {"warm": bound_ms / row["ms"], "cold": bound_ms / row["cold_ms"]}
             timing = row
         emit(row)
         if not ok:
@@ -748,6 +781,7 @@ def phase_kernel_patch_embed(pe):
                        library_call="two calls: the patchify copy of x.bfloat16() and torch.matmul (cuBLAS)",
                        bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes)
             row["tflops"] = flops / row["ms"] / 1e9
+            row["bound_share"] = bound_ms / row["ms"]
             timing = row
         emit(row)
         if not ok:
@@ -1156,6 +1190,19 @@ CLI_TRAIN, CLI_VAL, CLI_TEST = 48, 12, 12
 CLI_FLAGS = ["--model", "slot_vit_base_patch16_224", "--num_latents", "2", "--agg_depth", "8", "--agg_weights_tie",
              "--mask_model", "FAME", "--batch_size", "12", "--max_steps_per_epoch", "4", "--test_num_segment", "1",
              "--test_num_crop", "2", "--synthetic_data"]
+# the README's tiny command (without --device cpu), one epoch
+TINY_CLI_FLAGS = ["--smoke_tiny", "--synthetic_data", "--data_set", "UCF101", "--nb_classes", "5", "--num_latents",
+                  "2", "--agg_depth", "2", "--agg_weights_tie", "--mask_model", "FAME", "--batch_size", "4",
+                  "--epochs", "1", "--num_frames", "8", "--input_size", "32", "--short_side_size", "32"]
+
+
+def write_tiny_filelists(path: str) -> None:
+    """train.csv, val.csv and test.csv of 16, 8 and 8 synthetic clips over
+    the tiny command's 5 classes."""
+    os.makedirs(path, exist_ok=True)
+    for name, n in (("train.csv", 16), ("val.csv", 8), ("test.csv", 8)):
+        with open(os.path.join(path, name), "w") as f:
+            f.write("\n".join(f"{name[0]}{i}.mp4 {i % 5}" for i in range(n)))
 
 
 def _cli_run(attn, cli, argv):
@@ -1214,6 +1261,14 @@ def phase_cli(attn, card, direct_step_ms: float):
             "--finetune", ckpt, "--scene_model_path", teacher_pth])
         runs["eval"] = {"seconds": seconds, "launches": counts, "eval": result.get("eval"),
                         "eval_scene": result.get("eval_scene"), "knn": result.get("knn")}
+        tiny_data, tiny_out = os.path.join(tmp, "tiny_filelist"), os.path.join(tmp, "tiny")
+        write_tiny_filelists(tiny_data)
+        result, counts, seconds = _cli_run(attn, cli, TINY_CLI_FLAGS + ["--data_path", tiny_data,
+                                                                        "--output_dir", tiny_out])
+        runs["tiny"] = {"seconds": seconds, "launches": counts, "epochs_run": [e["epoch"] for e in result["epochs"]],
+                        "final_top1": result.get("final_top1")}
+        with open(os.path.join(tiny_out, "log.txt")) as f:
+            tiny_records = [json.loads(line) for line in f if line.strip()]
         files = [os.path.join(out, "log.txt"), os.path.join(out, "test", "0.txt"), ckpt,
                  os.path.join(eval_out, "test", "0.txt"), os.path.join(eval_out, "scene_test", "0.txt")]
         missing = [f for f in files if not os.path.exists(f)]
@@ -1227,6 +1282,7 @@ def phase_cli(attn, card, direct_step_ms: float):
     numbers = [v for r in records for k, v in r.items() if k.startswith(("train_", "val_", "final_"))]
     numbers += [v for m in merged.values() for v in m]
     numbers += [v for cells in knn.values() for ks in cells.values() for pair in ks.values() for v in pair]
+    numbers += [v for r in tiny_records for k, v in r.items() if k.startswith(("train_", "val_", "final_"))]
     steps = runs["train"]["n_steps"]
     clips = 2 * B  # --num_sample 2
     row = {"phase": "cli", "card": card, "runs": runs, "log_records": len(records), "result_rows": rows,
@@ -1238,7 +1294,7 @@ def phase_cli(attn, card, direct_step_ms: float):
     if runs["resume"]["epochs_run"] != [1] or runs["train"]["epochs_run"] != [0] or steps != 4:
         fail(f"the CLI ran epochs {runs['train']['epochs_run']} then {runs['resume']['epochs_run']} ({steps} steps)")
     if len(records) != 4 or set(knn) != {"HMDB51", "UCF101", "Diving-48"} or not numbers \
-            or not all(np.isfinite(v) for v in numbers):
+            or not all(np.isfinite(v) for v in numbers) or runs["tiny"]["epochs_run"] != [0] or not tiny_records:
         fail(f"CLI results incomplete or not finite: {row}")
     # K1 on the CLI's path: per train epoch 12 student stats forwards and
     # backwards and 12 teacher forwards per step, 12 student forwards per
@@ -1249,7 +1305,7 @@ def phase_cli(attn, card, direct_step_ms: float):
     # three datasets' train and val lists (student + teacher)
     knn_b = 3 * (-(-CLI_TRAIN // B) + -(-CLI_VAL // B))
     want_eval = {"K1-fwd": 12 * test_b + 24 * test_b + 24 * knn_b}
-    for label, want in (("train", want_train), ("resume", want_train), ("eval", want_eval)):
+    for label, want in (("train", want_train), ("resume", want_train), ("eval", want_eval), ("tiny", {})):
         got = {k: v for k, v in runs[label]["launches"].items() if v}
         if got != want:
             fail(f"CLI {label} launched {got}; want {want}")

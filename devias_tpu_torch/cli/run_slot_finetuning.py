@@ -5,7 +5,9 @@
 
 Flag-compatible with the JAX CLI (`cli/common.py` lists the differences).
 On `cuda` (the default) the student and the teacher run the hand-written
-attention kernel (K1, `fused_attention=True`); on `cpu` its plain version.
+attention kernel (K1, `fused_attention=True`) when their head dim is the
+one it takes (64; `use_attention_kernel`); otherwise, and on `cpu`, its
+plain version.
 Parameters are initialised from `torch.Generator`s seeded by `--seed`
 (student) and `--seed + 1` (teacher). Modes: training (the slot train step
 with FAME, validation each epoch with best-checkpoint tracking, final test
@@ -43,6 +45,7 @@ from devias_tpu_torch.core.dist import make_sp_mesh, maybe_init_distributed
 from devias_tpu_torch.data import build_dataset
 from devias_tpu_torch.device import resolve_device
 from devias_tpu_torch.eval import final_test, merge_results, run_scuba, validation_one_epoch
+from devias_tpu_torch.kernels.attention import HEAD_DIM
 from devias_tpu_torch.losses import SlotLossConfig
 from devias_tpu_torch.nn import create_model
 from devias_tpu_torch.train import TrainState, TrainStepConfig, make_optimizer, make_slot_train_step
@@ -85,13 +88,30 @@ def get_args(argv=None):
     return parser.parse_args(argv)
 
 
+# width and heads of both registry models unless --smoke_tiny overrides them
+_WIDTH = {"embed_dim": 768, "num_heads": 12}
+
+
+def use_attention_kernel(device: torch.device, embed_dim: int, num_heads: int) -> bool:
+    """Whether a model of this width runs K1 (`fused_attention`): on `cuda`
+    at the head dim the kernel takes (HEAD_DIM), and nowhere else. The
+    kernel's wrapper refuses any other head dim on the card, so the choice
+    is made here, once, as the reference CLI leaves `fused_attention` at
+    its default."""
+    return device.type == "cuda" and embed_dim // num_heads == HEAD_DIM
+
+
 def build_models(args, device: torch.device, dtype: torch.dtype = torch.bfloat16):
     """The student (`--model`) and the frozen CLS scene teacher
     (`vit_base_patch16_224`, ref run_slot_finetuning.py:392-406), with
     `--smoke_tiny`'s overrides, weights from `--seed` and `--seed + 1`,
-    on `device`; K1 on `cuda`, its plain version on `cpu`."""
+    on `device`; K1 where `use_attention_kernel` allows it, its plain
+    version elsewhere (logged once)."""
     tiny = tiny_overrides(args)
-    fused = device.type == "cuda"
+    width = {**_WIDTH, **{k: v for k, v in tiny.items() if k in _WIDTH}}
+    fused = use_attention_kernel(device, **width)
+    if device.type == "cuda" and not fused:
+        print(f"K1 off: head dim {width['embed_dim'] // width['num_heads']}")
     model = create_model(
         args.model, device=device, seed=args.seed, **tiny,
         num_classes=args.nb_classes, num_scene_classes=365, tubelet_size=args.tubelet_size,

@@ -79,6 +79,24 @@ inline bool make_map(CUtensorMap* map, const void* base, int64_t batch, int head
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+
+// A 2-D map over a row-major bf16 matrix [rows][cols] (row stride `ld`
+// elements, a multiple of 8), read in boxes of `box_rows` rows x 64
+// columns (one 128-byte swizzled row each). Columns past `cols` and rows
+// past `rows` come back as zeros. Returns false if the map cannot be
+// encoded. (K5's weights.)
+inline bool make_map_2d(CUtensorMap* map, const void* base, int64_t cols, int64_t rows, int64_t ld, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(ld) * 2};
+  const cuuint32_t box[2] = {cuuint32_t(kD), cuuint32_t(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // ------------------------------------------------------------------ device: shared memory, mbarriers, TMA
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -149,6 +167,30 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// One box of a 2-D map (`make_map_2d`) at column c0, row c1 into `dst`;
+// completes its bytes on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// 16 bytes from global to shared memory by cp.async; zeros when `valid` is
+// false (nothing is read then).
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// Arrives on `bar` once every cp.async this thread has issued so far has
+// landed; the arrival counts towards the barrier's expected count.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
 // Named barriers 1..15 (0 is __syncthreads'): `sync` waits until `threads`
 // threads have reached barrier `id` by sync or arrive; `arrive` does not wait.
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
@@ -176,6 +218,14 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 __device__ __forceinline__ uint64_t desc_b128(const void* p) {
   return uint64_t((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
          (uint64_t(1) << 62);
+}
+
+// `desc_b128` with a leading byte offset: the distance between the 64-column
+// blocks of an MN-major operand wider than 64 (B of an m64n256 product
+// stored as four [K][64] swizzled blocks).
+__device__ __forceinline__ uint64_t desc_b128_lbo(const void* p, uint32_t lbo_bytes) {
+  return uint64_t((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t((lbo_bytes >> 4) & 0x3FFF) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 
 // Step k of a descriptor: K-major advances 32 bytes, MN-major 16 rows.
@@ -252,6 +302,36 @@ __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(kTransB)
       : "memory");
 }
+
+
+// d[64 x 256] (+)= A[64 x 16] . B[16 x 256], A from registers (`pack_a`
+// layout), B from shared memory through `desc_b128_lbo` (K5).
+#define HOPPER_F128(d) HOPPER_F64(d), HOPPER_F8(d, 64), HOPPER_F8(d, 72), HOPPER_F8(d, 80), HOPPER_F8(d, 88), \
+      HOPPER_F8(d, 96), HOPPER_F8(d, 104), HOPPER_F8(d, 112), HOPPER_F8(d, 120)
+#define HOPPER_R128 \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n256_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " HOPPER_R128
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+      : HOPPER_F128(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(kTransB)
+      : "memory");
+}
+#undef HOPPER_F128
+#undef HOPPER_R128
 
 #undef HOPPER_F8
 #undef HOPPER_F32

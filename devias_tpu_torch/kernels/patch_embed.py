@@ -5,8 +5,10 @@
 bf16 with rows in (tb, ph, pw, c) order (the layout `nn/vit.py::PatchEmbed3D`
 flattens its Conv3d weight into) -> [B, T/2, (H/16)(W/16), Dout] bf16, the
 clip rounded to bf16 and the products summed in f32. On a CUDA tensor it is
-the hand-written kernel (`csrc/patch_embed.cu`, an implicit-im2col GEMM);
-on a CPU tensor `patchify_embed_reference`. `patchify_embed.launches`
+the hand-written kernel (`csrc/patch_embed.cu`, an implicit-im2col GEMM on
+wgmma: 128-token x 256-column tiles, the clip's f32 rows fed by cp.async and
+the kernel's by TMA through a 4-stage ring); on a CPU tensor
+`patchify_embed_reference`. `patchify_embed.launches`
 counts kernel launches.
 
 Not on a path: `PatchEmbed3D` stays patchify + matmul, as the JAX package's
@@ -68,6 +70,8 @@ def patchify_embed(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     for name, t in (("x", x), ("kernel", kernel)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"the K5 kernel takes a contiguous, 16-byte aligned {name}")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"the K5 kernel takes a clip of fewer than 2^31 elements; got {x.numel()}")
     B, T, H, W, _ = x.shape
     Dout = kernel.shape[1]
     out = torch.empty((B, T // TUBELET, (H // PATCH) * (W // PATCH), Dout), dtype=torch.bfloat16, device=x.device)

@@ -12,8 +12,9 @@ CPU tensor it is `slot_attention_reference`. Either way the backward is
 autograd of `slot_attention_reference` on the saved inputs, as the JAX
 package's `_fsa_bwd` replays its XLA formulation: the TPU kernel has no
 backward kernel, so the port has none. `fused_slot_attention.launches`
-counts kernel calls (four launches each: q projection, the per-tile pass,
-the reduction over tiles and the output projection).
+counts kernel calls (three launches each: u = scale wk_h q_h^T, the pass
+over ctx in key chunks, and the sums over chunks with the v and output
+projections; `csrc/slot_attention.cu`).
 
 Not on a path of the port or of the JAX package: `AggregationBlock` runs
 its own formulation (`nn/agg.py`), as the JAX block ignores its `fused`
@@ -31,6 +32,23 @@ from devias_tpu_torch.kernels import _build
 
 MAX_SLOTS = 8
 MAX_DIM = 1024
+# the kernel's key tiles and the number of CTAs its pass over ctx aims at
+# (one per SM of an H100)
+TILE_KEYS = 32
+TARGET_CTAS = 132
+# heads * dim_head: the last pass holds o of four (b, s) rows in shared memory
+MAX_INNER = 8192
+
+
+
+def key_chunking(B: int, N: int) -> Tuple[int, int]:
+    """(chunks, tiles per chunk) of the kernel's pass over ctx: N keys in
+    32-key tiles, cut into about TARGET_CTAS / B chunks of whole tiles per
+    batch entry. The c and den partials are summed over the chunks in
+    order."""
+    tiles = -(-N // TILE_KEYS)
+    per_chunk = -(-tiles // max(1, -(-TARGET_CTAS // B)))
+    return -(-tiles // per_chunk), per_chunk
 
 
 def slot_attention_reference(x: torch.Tensor, ctx: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
@@ -71,30 +89,30 @@ def _check(x, ctx, wq, wk, wv, wo, bo, heads: int, dim_head: int) -> None:
 def _launch(x, ctx, wq, wk, wv, wo, bo, heads: int, dim_head: int) -> Tuple[torch.Tensor, torch.Tensor]:
     B, S, D = x.shape
     N = ctx.shape[1]
-    if not 1 <= S <= MAX_SLOTS or D % 64 or D > MAX_DIM or dim_head % 64 or N < 1:
+    if not 1 <= S <= MAX_SLOTS or D % 64 or D > MAX_DIM or dim_head % 64 or heads * dim_head > MAX_INNER \
+            or N < 1:
         raise ValueError(f"the K4 kernel takes 1 <= S <= {MAX_SLOTS}, D a multiple of 64 up to {MAX_DIM} and "
-                         f"dim_head a multiple of 64; got S={S}, D={D}, dim_head={dim_head}, N={N}")
+                         f"dim_head a multiple of 64 with heads * dim_head up to {MAX_INNER}; got S={S}, D={D}, "
+                         f"heads={heads}, dim_head={dim_head}, N={N}")
     for name, t in (("x", x), ("ctx", ctx), ("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo), ("bo", bo)):
         if t.dtype != torch.bfloat16:
             raise ValueError(f"the K4 kernel takes {name} as torch.bfloat16; got {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"the K4 kernel takes a contiguous, 16-byte aligned {name}")
-    inner = heads * dim_head
-    n_tiles = -(-N // 64)
+    chunks, per_chunk = key_chunking(B, N)
     dev = x.device
-    q_ws = torch.empty((B, S, inner), dtype=torch.float32, device=dev)
-    num_ws = torch.empty((B, heads, n_tiles, S, dim_head), dtype=torch.float32, device=dev)
-    den_ws = torch.empty((B, heads, n_tiles, S), dtype=torch.float32, device=dev)
-    o_ws = torch.empty((B, S, inner), dtype=torch.bfloat16, device=dev)
+    u_ws = torch.empty((B, heads, S, D), dtype=torch.float32, device=dev)
+    num_ws = torch.empty((B, chunks, heads, S, D), dtype=torch.float32, device=dev)
+    den_ws = torch.empty((B, chunks, heads, S), dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
     sim = torch.empty((B, heads, S, N), dtype=torch.float32, device=dev)
     fn = _build.load("slot_attention").devias_slot_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         rc = fn(x.data_ptr(), ctx.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), wo.data_ptr(),
-                bo.data_ptr(), q_ws.data_ptr(), num_ws.data_ptr(), den_ws.data_ptr(), o_ws.data_ptr(),
-                out.data_ptr(), sim.data_ptr(), B, S, N, D, heads, dim_head, float(dim_head ** -0.5),
+                bo.data_ptr(), u_ws.data_ptr(), num_ws.data_ptr(), den_ws.data_ptr(), out.data_ptr(),
+                sim.data_ptr(), B, S, N, D, heads, dim_head, chunks, per_chunk, float(dim_head ** -0.5),
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"slot-attention kernel launch failed with CUDA error {rc}")

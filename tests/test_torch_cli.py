@@ -6,7 +6,9 @@ both CLIs in float32 (the CLIs build bf16 models; the test patches each
 one's `build_models` dtype in this process); (c) a CPU train run, and an
 exact resume: one epoch, a stop, then --auto_resume for the second, equals
 two epochs in one run, bitwise in the parameters and in log.txt and
-test/0.txt (train_time_s aside)."""
+test/0.txt (train_time_s aside); (d) the choice of K1 by head dim, which
+lets `--smoke_tiny` (64 wide, 4 heads: head dim 16) run on the card with
+the plain attention while K1's wrapper keeps refusing that head dim."""
 
 import functools
 import json
@@ -59,6 +61,30 @@ def test_flag_parity():
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli.main(cli.get_args(BASE + ["--device", "cpu"] + flags))
+
+
+@pytest.mark.parametrize("device,embed_dim,num_heads,want", [
+    ("cuda", 768, 12, True),   # the flagship and its teacher: head dim 64
+    ("cuda", 64, 4, False),    # --smoke_tiny: head dim 16
+    ("cuda", 256, 8, False),   # head dim 32
+    ("cpu", 768, 12, False),   # the CPU always takes the plain version
+])
+def test_attention_kernel_only_at_its_head_dim(device, embed_dim, num_heads, want):
+    assert cli.use_attention_kernel(torch.device(device), embed_dim, num_heads) is want
+
+
+def test_attention_wrapper_still_refuses_head_dim_16_on_a_cuda_tensor():
+    """The CLI's choice is configuration, not a fallback: K1's wrapper still
+    raises for a CUDA tensor of head dim 16 (a fake tensor here, which
+    carries the device and shape without a card)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from devias_tpu_torch.kernels.attention import fused_attention_qkv
+
+    with FakeTensorMode():
+        qkv = torch.empty(1, 8, 3 * 64, device="cuda", dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head dim 64; got 16"):
+            fused_attention_qkv(qkv, 4, 0.25)
 
 
 def _export_models(tmp_path):

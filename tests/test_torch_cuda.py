@@ -1,5 +1,7 @@
-"""K1, K2 and K3 on the card: the CUDA kernels against their plain
-versions in bf16, autograd through them, and the wrappers' refusals. Marked `cuda`; each test skips without a card.
+"""K1-K5 on the card: the CUDA kernels against their plain versions in
+bf16, autograd through them, two runs bitwise equal, the wrappers'
+refusals, and the README's tiny CLI command on the card (head dim 16, so
+without K1). Marked `cuda`; each test skips without a card.
 This file imports neither JAX nor the JAX package, so on a machine with a
 card and no JAX it runs as
 `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`."""
@@ -336,3 +338,47 @@ def test_patch_embed_kernel_refuses_what_it_does_not_take(card):
         patchify_embed(x, torch.zeros(1536, 60, device=card, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="contiguous"):
         patchify_embed(x.transpose(2, 3), kernel)
+
+
+def test_slot_attention_and_patch_embed_kernels_are_deterministic(card):
+    """K4 sums its key chunks and K5 its K loop in a fixed order, with no
+    atomics: two runs on the same inputs are bitwise equal, at the flagship
+    agg round's widths (D=768, 4 heads x 512, N=1568) and the flagship clip."""
+    from devias_tpu_torch.kernels import fused_slot_attention, patchify_embed
+
+    rng = np.random.default_rng(11)
+    shapes = ((2, 2, 768, 1.0), (2, 1568, 768, 1.0), (768, 2048, 0.02), (768, 2048, 0.02), (768, 2048, 0.02),
+              (2048, 768, 0.02), (768, 0.02))
+    xs = [torch.from_numpy((rng.normal(size=s[:-1]) * s[-1]).astype(np.float32)).to(card, torch.bfloat16)
+          for s in shapes]
+    with torch.no_grad():
+        first = fused_slot_attention(*xs, 4, 512)
+        again = fused_slot_attention(*xs, 4, 512)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    x = torch.from_numpy(rng.normal(size=(12, 16, 224, 224, 3)).astype(np.float32)).to(card)
+    kernel = torch.from_numpy((rng.normal(size=(1536, 768)) * 0.025).astype(np.float32)).to(card, torch.bfloat16)
+    first = patchify_embed(x, kernel)
+    torch.cuda.synchronize()
+    assert torch.equal(first, patchify_embed(x, kernel))
+
+
+def test_tiny_cli_trains_and_evaluates_on_the_card(card, tmp_path):
+    """The README's `--smoke_tiny` command without `--device cpu`: one
+    epoch of training, validation and the final test on the card, finite
+    metrics, and no K1 launch (head dim 16 is not the kernel's)."""
+    import json
+
+    from chip_smoke import TINY_CLI_FLAGS, write_tiny_filelists
+    from devias_tpu_torch.cli import run_slot_finetuning as cli
+    from devias_tpu_torch.kernels import attention
+
+    write_tiny_filelists(str(tmp_path / "fl"))
+    attention.reset_launch_counts()
+    result = cli.main(cli.get_args(TINY_CLI_FLAGS + ["--data_path", str(tmp_path / "fl"),
+                                                     "--output_dir", str(tmp_path / "out")]))
+    torch.cuda.synchronize()
+    assert not any(attention.launch_counts().values())
+    assert [e["epoch"] for e in result["epochs"]] == [0] and np.isfinite(result["final_top1"])
+    records = [json.loads(line) for line in (tmp_path / "out" / "log.txt").read_text().splitlines() if line.strip()]
+    numbers = [v for r in records for k, v in r.items() if k.startswith(("train_", "val_", "final_"))]
+    assert records and numbers and all(np.isfinite(v) for v in numbers)

@@ -2,8 +2,9 @@
 version against the JAX package's Pallas kernel (interpret mode, 32-key
 blocks, so N=100 is ragged against them) and XLA formulation, its
 autograd Function's gradients against `jax.grad` of the fused JAX function,
-and a CPU emulation of the CUDA kernel's tiling (64-key tiles, per-tile
-num and den, a fixed-order sum over tiles) against the plain version,
+and a CPU emulation of the CUDA kernel's factorised passes (u = scale wk_h
+q_h^T, per key chunk the logits ctx . u and c = a ctx, the chunks summed in
+order, then c wv_h and the output product) against the plain version,
 which leaves that tolerance when the ragged keys are left in.
 f32 throughout; the tolerances are the JAX package's own for this kernel
 (`tests/test_kernels.py:125-126`, `:140`). At `chip_smoke.py`'s widths and
@@ -18,6 +19,7 @@ import torch
 from devias_tpu.kernels.slot_attention import fused_slot_attention as jax_fused_slot_attention
 from devias_tpu.kernels.slot_attention import slot_attention_reference as jax_slot_attention_reference
 from devias_tpu_torch.kernels import fused_slot_attention, slot_attention_reference
+from devias_tpu_torch.kernels.slot_attention import TILE_KEYS, key_chunking
 
 B, S, N, D, HEADS, DH = 2, 2, 100, 32, 4, 16
 SIM = dict(rtol=1e-5, atol=1e-6)
@@ -80,34 +82,49 @@ def test_function_backward_takes_either_cotangent():
 
 
 def _emulate(x, ctx, wq, wk, wv, wo, bo, heads, dh, mask_ragged_keys=True, round_bf16=False):
-    """`csrc/slot_attention.cu` step by step in f32: q = x wq; per 64-key
-    tile (ctx zero-padded to whole tiles) k, v, the slot softmax per key,
-    ragged keys zeroed, partial den and num; the tiles summed in order;
-    o = num / (den + 1e-7); out = o wo + bo. With `round_bf16`, o and out
-    are rounded to bf16 where the kernel rounds them."""
-    Bx, Sx, _ = x.shape
+    """`csrc/slot_attention.cu` pass by pass in f32, at its key chunking
+    (`key_chunking`: 32-key tiles, whole tiles per chunk, ctx zero-padded to
+    whole tiles). prep: q = x wq, u[h, s] = scale * wk_h q_h[s]^T. stream, per
+    chunk: the logits ctx . u, the slot softmax per key, ragged keys zeroed,
+    the chunk's den and c = a ctx. finish: den and c summed over the chunks in
+    order, num = c wv_h, o = num / (den + 1e-7), out = o wo + bo. With
+    `round_bf16`, o and out are rounded to bf16 where the kernel rounds
+    them."""
+    Bx, Sx, D = x.shape
     n = ctx.shape[1]
-    tiles = -(-n // 64)
-    ctx = torch.cat([ctx, ctx.new_zeros(Bx, tiles * 64 - n, ctx.shape[2])], dim=1)
+    chunks, per_chunk = key_chunking(Bx, n)
+    span = per_chunk * TILE_KEYS
+    ctx = torch.cat([ctx, ctx.new_zeros(Bx, chunks * span - n, D)], dim=1)
     q = (x @ wq).reshape(Bx, Sx, heads, dh)
-    num = torch.zeros(Bx, heads, Sx, dh)
-    den = torch.zeros(Bx, heads, Sx)
-    sims = []
-    for t in range(tiles):
-        c = ctx[:, t * 64:(t + 1) * 64]
-        k = (c @ wk).reshape(Bx, 64, heads, dh)
-        v = (c @ wv).reshape(Bx, 64, heads, dh)
-        a = (torch.einsum("bshd,bnhd->bhsn", q, k) * dh ** -0.5).softmax(dim=2)
+    u = torch.einsum("dhj,bshj->bhsd", wk.reshape(D, heads, dh), q) * dh ** -0.5
+    c_parts, den_parts, sims = [], [], []
+    for k in range(chunks):
+        c = ctx[:, k * span:(k + 1) * span]
+        a = torch.einsum("bnd,bhsd->bhsn", c, u).softmax(dim=2)
         if mask_ragged_keys:
-            a = a * (torch.arange(t * 64, (t + 1) * 64) < n).float()
+            a = a * (torch.arange(k * span, (k + 1) * span) < n).float()
         sims.append(a)
-        num = num + torch.einsum("bhsn,bnhd->bhsd", a, v)
-        den = den + a.sum(dim=-1)
-    o = (num / (den[..., None] + 1e-7)).transpose(1, 2).reshape(Bx, Sx, heads * dh)
+        den_parts.append(a.sum(dim=-1))
+        c_parts.append(torch.einsum("bhsn,bnd->bhsd", a, c))
+    c_sum, den = c_parts[0], den_parts[0]
+    for c_k, den_k in zip(c_parts[1:], den_parts[1:]):
+        c_sum, den = c_sum + c_k, den + den_k
+    num = torch.einsum("bhsd,dhj->bshj", c_sum, wv.reshape(D, heads, dh))
+    o = (num / (den.transpose(1, 2)[..., None] + 1e-7)).reshape(Bx, Sx, heads * dh)
     if round_bf16:
         o = o.bfloat16().float()
     out = o @ wo + bo
     return (out.bfloat16().float() if round_bf16 else out), torch.cat(sims, dim=-1)[..., :n]
+
+
+def test_key_chunking_covers_the_keys_in_whole_tiles():
+    """The chunking the wrapper hands the kernel: every key in exactly one
+    chunk, no chunk empty, about TARGET_CTAS CTAs over the batch."""
+    for b, n in ((12, 1568), (12, 301), (2, 100), (2, 64), (1, 1), (64, 1568), (3, 33)):
+        chunks, per_chunk = key_chunking(b, n)
+        tiles = -(-n // TILE_KEYS)
+        assert (chunks - 1) * per_chunk < tiles <= chunks * per_chunk
+    assert key_chunking(12, 1568) == (10, 5)  # 120 CTAs of 5 tiles at the flagship agg round
 
 
 @pytest.mark.parametrize("n", [100, 64, 301])
@@ -131,7 +148,9 @@ def test_smoke_tolerance_catches_unmasked_keys():
     512 over D=768; two batch entries here). The emulated kernel, with its
     bf16 roundings of o and out, stays below that; left in, the 19
     zero-padded keys of the last tile take their share of each slot's
-    softmax and inflate den, and out reads above 1.5 times the tolerance."""
+    softmax and inflate den, and out reads above 1.5 times the tolerance.
+    At B=2 and N=301 the kernel cuts the keys into ten one-tile chunks, so
+    the padded keys are the last tile's."""
     from chip_smoke import AGG_DIM, AGG_DIM_HEAD, AGG_HEADS, KERNEL_TOL, SLOTS
 
     n, inner = 301, AGG_HEADS * AGG_DIM_HEAD
