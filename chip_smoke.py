@@ -85,6 +85,25 @@ prints one JSON line, and the first failure exits non-zero:
    the card (64 wide, 4 heads: head dim 16, so K1 stays off and no kernel
    launches). Fails on a missing result file, a non-finite metric or
    launch counts other than these.
+9. dp_train: data parallelism with a data axis of two on the one card:
+   two processes of this script (`--dp-rank`) join a gloo group (NCCL
+   refuses two ranks on one device; gloo all-reduces CUDA tensors through
+   the host) and run the flagship step made with `dp_mesh=make_mesh()`,
+   each on its 6 of the 12 clips with its shard's fixed FAME draws: one
+   compared step and DP_WINDOW timed ones, 12 K1-fwd, 12 K1-fwd stats and
+   12 K1-bwd per step on each rank. Rank 0 then runs the one-process step
+   with `num_data_shards=2` on all 12 clips from the same weights and
+   draws; the loss, grad_norm and three parameters' reduced gradients and
+   values after the step are held to it as train_vs_plain holds its
+   numbers, and the ranks must agree bitwise. The ms per step printed is a
+   two-process gloo run on one card, not a data-parallel throughput.
+10. hat: the CLI in-process at full width with --hat_eval on synthetic
+   Kinetics-HAT assets written with PIL (HAT_RECORDS records of
+   HAT_FRAMES 240x320 frames, one version dir of three splits), once with
+   action targets and once with --eval_scene, on the CLI's seeded student
+   and scene teacher: every split's result files, finite accuracies, and
+   12 K1-fwd per student batch (12 more per teacher batch in the scene
+   run).
 
 Then one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 Exits non-zero, printing no result, without CUDA or without the port.
@@ -92,6 +111,7 @@ Exits non-zero, printing no result, without CUDA or without the port.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -1354,10 +1374,251 @@ def phase_cli_host_rate(card, direct_step_ms: float):
         fail(f"the CLI's loader gave {n} batches of {sorted(set(clips))} clips")
 
 
+# dp_train: a data axis of two on the one card, 6 of the 12 clips per rank
+DP_RANKS = 2
+DP_WINDOW = 3
+
+
+def _dp_batch():
+    """The 12 clips of the train phase, their labels and each data shard's
+    fixed FAME draws (a donor permutation of its 6 clips and the samples
+    that take the mix)."""
+    rng = np.random.default_rng(0)
+    batch = {"videos": rng.standard_normal(CLIPS, dtype=np.float32), "labels": rng.integers(0, NUM_CLASSES, size=B)}
+    draws_rng = np.random.default_rng(2)
+    local = B // DP_RANKS
+    draws = [{"perm": torch.from_numpy(draws_rng.permutation(local)),
+              "keep": torch.from_numpy(draws_rng.random(local) < 0.8)} for _ in range(DP_RANKS)]
+    return batch, draws
+
+
+def _flagship_step(step_cfg, **layout):
+    """The train phase's student, teacher, optimizer, state and step, with
+    `step_cfg` and a process layout; and a dict the optimizer fills with
+    the watched parameters' (reduced) gradients just before its first
+    update."""
+    from devias_tpu_torch.nn import create_model
+    from devias_tpu_torch.train import OptimConfig, TrainState, make_optimizer, make_slot_train_step
+
+    student = create_model("slot_vit_base_patch16_224", seed=0, fused_attention=True, **SLOT_KW)
+    teacher = create_model("vit_base_patch16_224", seed=1, fused_attention=True, **TEACHER_KW)
+    opt, lr_fn = make_optimizer(student, OptimConfig(lr=5e-4, total_steps=1000, warmup_steps=10))
+    state = TrainState.create(student, opt)
+    loss_cfg, _ = _train_parts()
+    step = make_slot_train_step(student, teacher, opt, loss_cfg, step_cfg, lr_fn, **layout)
+    params = dict(student.named_parameters())
+    grads = {}
+    update = opt.step
+
+    def recording_update(*args, **kw):
+        if not grads:
+            grads.update({n: params[n].grad.float().cpu() for n in TRAIN_WATCH})
+        return update(*args, **kw)
+
+    opt.step = recording_update
+    return student, state, step, grads
+
+
+def dp_rank_main(rank: int, port: int, out: str) -> None:
+    """One rank of the dp_train phase, in a process of its own: a gloo
+    group of DP_RANKS ranks on the one card, the data-parallel flagship
+    step (`make_mesh()`) on this rank's 6 clips with its shard's FAME
+    draws, one compared step and DP_WINDOW timed ones, the K1 launches
+    counted over them; rank 0 then runs the one-process step with
+    `num_data_shards=2` on all 12 clips from the same weights and draws.
+    Writes its results to `out`/dp{rank}.pt."""
+    import torch.distributed as dist
+
+    from devias_tpu_torch.core.dist import make_mesh
+    from devias_tpu_torch.kernels import attention as attn
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=DP_RANKS, rank=rank)
+    try:
+        _, step_cfg = _train_parts()
+        batch, draws = _dp_batch()
+        local = B // DP_RANKS
+        mine = {k: v[rank * local:(rank + 1) * local] for k, v in batch.items()}
+        student, state, step, grads = _flagship_step(step_cfg, dp_mesh=make_mesh())
+        attn.reset_launch_counts()
+        metrics = step(state, mine, draws=draws[rank], host_metrics=True)
+        params = dict(student.named_parameters())
+        res = {"metrics": metrics, "grads": grads,
+               "params": {n: params[n].detach().float().cpu() for n in TRAIN_WATCH}}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_WINDOW):
+            step(state, mine, draws=draws[rank])
+        torch.cuda.synchronize()
+        res["ms_per_step"] = (time.perf_counter() - t0) / DP_WINDOW * 1e3
+        res["launches"] = attn.launch_counts()
+        res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if rank == 0:
+            del student, state, step, params
+            torch.cuda.empty_cache()
+            student, state, step, grads = _flagship_step(dataclasses.replace(step_cfg, num_data_shards=DP_RANKS))
+            metrics = step(state, batch, draws=[draws], host_metrics=True)
+            params = dict(student.named_parameters())
+            res["one_process"] = {"metrics": metrics, "grads": grads,
+                                  "params": {n: params[n].detach().float().cpu() for n in TRAIN_WATCH}}
+        torch.save(res, os.path.join(out, f"dp{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dp_train(attn, card):
+    """Data parallelism on the one card: DP_RANKS processes (`dp_rank_main`)
+    joined by gloo, which all-reduces CUDA tensors through the host (NCCL
+    refuses two ranks on one device). The DP step is held to the one-process
+    step with `num_data_shards=2` on the same 12 clips and draws: the loss
+    within TRAIN_LOSS_TOL, grad_norm and each watched parameter's gradient
+    and value after the step within TRAIN_TOL, as train_vs_plain holds
+    them; the ranks must end bitwise equal, each with 12 K1-fwd, 12 K1-fwd
+    stats and 12 K1-bwd per step. Its ms per step is a two-process gloo run
+    on one card, not a DP throughput. Returns the K1 counts of both ranks'
+    DP steps."""
+    with tempfile.TemporaryDirectory() as tmp:
+        port = _free_port()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r), str(port), tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(DP_RANKS)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        if any(p.returncode for p in procs):
+            fail(f"dp_train ranks exited {[p.returncode for p in procs]}:\n" + "\n".join(logs)[-4000:])
+        ranks = [torch.load(os.path.join(tmp, f"dp{r}.pt"), weights_only=False) for r in range(DP_RANKS)]
+    ref = ranks[0]["one_process"]
+    m, m_ref = ranks[0]["metrics"], ref["metrics"]
+    row = {"phase": "dp_train", "card": card, "ranks": DP_RANKS, "backend": "gloo",
+           "clips_per_rank": B // DP_RANKS, "steps": 1 + DP_WINDOW, "metrics": m, "metrics_one_process": m_ref,
+           "launches": [r["launches"] for r in ranks], "loss_tol": TRAIN_LOSS_TOL, "tol": TRAIN_TOL,
+           "gloo_one_card_ms_per_step": [r["ms_per_step"] for r in ranks],
+           "peak_memory_gib": [r["peak_memory_gib"] for r in ranks], "grads": {}, "params": {}}
+    ok = np.isfinite(m["loss"]) and abs(m["loss"] - m_ref["loss"]) <= TRAIN_LOSS_TOL * abs(m_ref["loss"])
+    ok &= abs(m["grad_norm"] - m_ref["grad_norm"]) <= TRAIN_TOL * m_ref["grad_norm"]
+    for kind in ("grads", "params"):
+        for n in TRAIN_WATCH:
+            got, want = ranks[0][kind][n], ref[kind][n]
+            err, top = (got - want).abs().max().item(), want.abs().max().item()
+            row[kind][n] = {"max_abs_err": err, "max_abs_one_process": top}
+            ok &= bool(torch.isfinite(got).all()) and top > 0 and err <= TRAIN_TOL * top
+    same = all(ranks[r]["metrics"] == m and all(torch.equal(ranks[r]["params"][n], ranks[0]["params"][n])
+                                                 for n in TRAIN_WATCH) for r in range(1, DP_RANKS))
+    row["ranks_bitwise_equal"] = same
+    emit(row)
+    if not (ok and same):
+        fail("the data-parallel step disagrees with the one-process step, or its ranks with each other")
+    want = {name: 12 * (1 + DP_WINDOW) if name.startswith("K1") else 0 for name in ranks[0]["launches"]}
+    for r in ranks:
+        if r["launches"] != want:
+            fail(f"dp_train launched {r['launches']} on a rank; want {want}")
+    return {name: sum(r["launches"][name] for r in ranks) for name in want}
+
+
+# the hat phase: Kinetics-HAT assets, one version dir of three splits of
+# HAT_RECORDS records, HAT_FRAMES frames of 240x320 (16 frames at sampling
+# rate 4); 6 test views a record (2 segments x 3 crops)
+HAT_RECORDS = 2
+HAT_FRAMES = 64
+HAT_HW = (240, 320)
+
+
+def write_hat_assets(root: str):
+    """Synthetic Kinetics-HAT assets written with PIL (the layout of
+    `tests/test_hat.py`): per record a foreground video with its person
+    masks, an inpainted background video with its masks, and the
+    actionswap pickles of far/1-3 with labels.csv two directories above
+    them. Returns (data prefix, version dir)."""
+    import pickle
+
+    from PIL import Image
+
+    data = os.path.join(root, "data")
+    h, w = HAT_HW
+    rng = np.random.default_rng(3)
+
+    def video(kind, name, color, box):
+        fdir, mdir = os.path.join(data, kind, name), os.path.join(data, "seg/videos", name)
+        os.makedirs(fdir, exist_ok=True)
+        os.makedirs(mdir, exist_ok=True)
+        y, x = box
+        for i in range(HAT_FRAMES):
+            frame = np.clip(color + rng.integers(-25, 25, size=(h, w, 3)), 0, 255).astype(np.uint8)
+            frame[y:y + 96, x + i:x + i + 48] = 250  # the "person", walking
+            mask = np.zeros((h, w), np.uint8)
+            mask[y:y + 96, x + i:x + i + 48] = 255
+            Image.fromarray(frame).save(os.path.join(fdir, f"{i + 1:06d}.jpg"), quality=90)
+            Image.fromarray(mask).save(os.path.join(mdir, f"{i + 1:06d}.png"))
+
+    for r in range(HAT_RECORDS):
+        video("original/videos", f"fg{r}.mp4", 40 + 40 * r, (20 + 30 * r, 30))
+        video("inpaint/videos", f"bg{r}.mp4", 200 - 40 * r, (120, 150 - 60 * r))
+    version = os.path.join(root, "hat", "kinetics", "far")
+    os.makedirs(version)
+    with open(os.path.join(root, "hat", "kinetics", "labels.csv"), "w") as f:
+        f.write("".join(f"{c},class{c}\n" for c in range(3)))
+    anno = {f"class{r % 3}/fg{r}.mp4": (f"x/bg{r}.mp4", HAT_FRAMES) for r in range(HAT_RECORDS)}
+    for split in (1, 2, 3):
+        with open(os.path.join(version, f"actionswap_far_{split}.pickle"), "wb") as f:
+            pickle.dump(anno, f)
+    return data, version
+
+
+def phase_hat(attn, card):
+    """The port's CLI in-process at full width with --hat_eval on synthetic
+    Kinetics-HAT assets: once with action targets, once with --eval_scene,
+    on the CLI's seeded flagship student and scene teacher. Fails on a
+    missing result file, a non-finite accuracy, or K1 counts other than 12
+    K1-fwd per student batch (and 12 more per teacher batch in the scene
+    run)."""
+    from devias_tpu_torch.cli import run_slot_finetuning as cli
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data, version = write_hat_assets(tmp)
+        write_s = time.perf_counter() - t0
+        base = ["--model", "slot_vit_base_patch16_224", "--num_latents", "2", "--agg_depth", "8", "--agg_weights_tie",
+                "--batch_size", str(B), "--data_set", "Kinetics-400", "--data_prefix", data, "--hat_eval",
+                "--hat_anno_path", version]
+        for label, extra in (("action", []), ("scene", ["--eval_scene"])):
+            out = os.path.join(tmp, label)
+            result, counts, seconds = _cli_run(attn, cli, base + extra + ["--output_dir", out])
+            files = [os.path.join(out, "hat", "far", str(s), name) for s in (1, 2, 3) for name in ("0.txt", "log.txt")]
+            missing = [f for f in files if not os.path.exists(f)]
+            if missing:
+                fail(f"--hat_eval ({label}) left no {missing}")
+            splits = []
+            for s in (1, 2, 3):
+                with open(os.path.join(out, "hat", "far", str(s), "log.txt")) as f:
+                    splits.append(json.loads(f.read()))
+            runs[label] = {"seconds": seconds, "launches": counts, "hat": result.get("hat"), "splits": splits}
+    batches = 3 * -(-6 * HAT_RECORDS // B)  # three splits of 6 views a record
+    row = {"phase": "hat", "card": card, "records": HAT_RECORDS, "frames": HAT_FRAMES, "frame_hw": list(HAT_HW),
+           "views_per_split": 6 * HAT_RECORDS, "assets_write_s": write_s, "runs": runs}
+    emit(row)
+    numbers = [v for r in runs.values() for sp in r["splits"] for v in sp.values()]
+    numbers += [v for r in runs.values() for acc in (r["hat"] or {}).values() for v in acc.values()]
+    if len(numbers) != 2 * (3 * 2 + 2) or not all(np.isfinite(v) for v in numbers):
+        fail(f"--hat_eval results incomplete or not finite: {row}")
+    for label, per_batch in (("action", 12), ("scene", 24)):
+        got = {k: v for k, v in runs[label]["launches"].items() if v}
+        if got != {"K1-fwd": per_batch * batches}:
+            fail(f"--hat_eval ({label}) launched {got}; want {{'K1-fwd': {per_batch * batches}}}")
+    return {name: sum(r["launches"][name] for r in runs.values()) for name in runs["action"]["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dp-rank"]:  # a process of the dp_train phase
+        dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
     try:
         from devias_tpu_torch.kernels import _build as build
         from devias_tpu_torch.kernels import attention as attn
@@ -1384,9 +1645,12 @@ def main() -> int:
     sp_launches = phase_sp_train(attn, card)
     cli_launches = phase_cli(attn, card, train_ms)
     phase_cli_host_rate(card, train_ms)
+    dp_launches = phase_dp_train(attn, card)
+    hat_launches = phase_hat(attn, card)
 
     def launches(name):
-        return train_launches[name] + sp_launches[name] + cli_launches[name]
+        return (train_launches[name] + sp_launches[name] + cli_launches[name] + dp_launches[name]
+                + hat_launches[name])
 
     # K2 in the kernels line at the shape the one-card SP step gives it; the
     # four-shard shape beside it

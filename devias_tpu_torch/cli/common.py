@@ -143,8 +143,8 @@ def build_shared_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--tp_size", default=1, type=int,
                    help="extension: tensor-parallel size (not ported yet)")
     p.add_argument("--sp_shards", default=1, type=int,
-                   help="extension: sequence-parallel shards over a seq group of that many processes "
-                        "(a data axis of one)")
+                   help="extension: sequence-parallel shards over seq groups of that many processes "
+                        "(world / sp_shards data rows)")
     p.add_argument("--profile_dir", default="", type=str,
                    help="extension: write a torch.profiler trace of steps 5-10 of the first epoch here")
     p.add_argument("--max_steps_per_epoch", default=0, type=int,
@@ -165,7 +165,6 @@ def reject_unported(args) -> None:
         (getattr(args, "tp_size", 1) > 1, f"--tp_size: {item17}"),
         (getattr(args, "zero1", False), f"--zero1: {item17}"),
         (getattr(args, "fsdp", False), f"--fsdp: {item17}"),
-        (getattr(args, "hat_eval", False), "--hat_eval (data/hat.py): ROADMAP.md queue 1, item 11a"),
         (getattr(args, "mask_model", "") == "Segformer", "--mask_model Segformer: ROADMAP.md queue 1, item 16"),
         (getattr(args, "teacher_int8", False), "--teacher_int8 (nn/quant.py): ROADMAP.md queue 1, item 15"),
         (getattr(args, "use_checkpoint", False),
@@ -188,6 +187,15 @@ def world() -> tuple:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
+
+
+def data_axis(args) -> tuple:
+    """(data rank, data size) of this process: the data row it belongs to
+    and the number of rows, `--sp_shards` ranks to a row. Each row reads
+    its own shard of the training set; the seq ranks of a row read the
+    same one."""
+    rank, size = world()
+    return rank // args.sp_shards, size // args.sp_shards
 
 
 def run_train_loop(
@@ -312,10 +320,15 @@ def _stop_profile(prof, profile_dir: str):
     return None
 
 
+def global_batch(args) -> int:
+    """Samples per optimizer step over all processes: the per-row batch
+    times the data rows (the seq ranks of a row share its batch)."""
+    return args.batch_size * args.update_freq * data_axis(args)[1]
+
+
 def scaled_lr(args) -> float:
     """LR linearly scaled by total batch / 256 (ref run_slot_finetuning.py:521-525)."""
-    total = args.batch_size * args.update_freq * world()[1]
-    return args.lr * total / 256.0
+    return args.lr * global_batch(args) / 256.0
 
 
 def make_data_config(args, **overrides) -> DataConfig:
@@ -365,6 +378,8 @@ def make_optim_config(args, total_steps: int, steps_per_epoch: int,
 
 
 def make_train_loader(dataset, args) -> DataLoader:
+    """This data row's padded shard of the shuffled training set."""
+    shard, num_shards = data_axis(args)
     return DataLoader(
         dataset,
         batch_size=args.batch_size * args.update_freq,
@@ -372,14 +387,24 @@ def make_train_loader(dataset, args) -> DataLoader:
         drop_last=True,
         num_workers=args.num_workers,
         seed=args.seed,
+        shard=shard,
+        num_shards=num_shards,
     )
 
 
-def make_eval_loader(dataset, args, batch_size: Optional[int] = None) -> DataLoader:
-    """Evaluation loader: one process reads every view, unpadded, in order
-    (the port runs one process per data row)."""
+def make_eval_loader(dataset, args, batch_size: Optional[int] = None, all_hosts: bool = False) -> DataLoader:
+    """Evaluation loader. Default: shard across processes only under
+    --dist_eval, unpadded (per-rank result files record exactly their
+    shard; merge dedups). all_hosts=True shards across processes
+    unconditionally with padded (equal-length) shards, as the k-NN banks
+    need (the reference's DistributedSampler pads the same way, ref
+    run_knn.py:28-42)."""
+    rank, size = world()
+    multi = all_hosts and size > 1
+    sharded = multi or args.dist_eval
     return DataLoader(dataset, batch_size=batch_size or args.batch_size, shuffle=False, drop_last=False,
-                      num_workers=args.num_workers, pad_shards=False)
+                      num_workers=args.num_workers, shard=rank if sharded else 0,
+                      num_shards=size if sharded else 1, pad_shards=multi)
 
 
 class JsonlLogger:
@@ -424,6 +449,7 @@ def run_knn_protocol(args, feature_fn, teacher_logits_fn, rank: int) -> dict:
 
     feature_fn(videos) -> (action_feat, scene_feat)."""
     from devias_tpu_torch.data import knn_build_dataset
+    from devias_tpu_torch.data.loader import shard_indices
     from devias_tpu_torch.eval.knn import (
         extract_slot_features,
         gather_features_across_hosts,
@@ -443,12 +469,17 @@ def run_knn_protocol(args, feature_fn, teacher_logits_fn, rank: int) -> dict:
             continue
         banks = []
         for ds in (tr, te):
-            loader = make_eval_loader(ds, args)
+            # padded shards over all processes, scattered back into dataset
+            # order, where the padding's duplicate rows collapse as the
+            # reference's index_copy_ bank does (ref run_knn.py:72-119)
+            loader = make_eval_loader(ds, args, all_hosts=True)
             try:
-                banks.append(gather_features_across_hosts(*extract_slot_features(
-                    loader, feature_fn, args.batch_size, scene_label_fn=teacher_logits_fn)))
+                feats = extract_slot_features(loader, feature_fn, args.batch_size, scene_label_fn=teacher_logits_fn)
             finally:
                 loader.close()
+            banks.append(gather_features_across_hosts(
+                *feats, n_total=len(ds),
+                local_indices=shard_indices(len(ds), loader.shard, loader.num_shards, False, 0, 0, True)))
         (tra, trs, tral, trsl), (tea, tes, teal, tesl) = banks
         if rank == 0 and args.output_dir:
             # feature dump (ref run_knn.py:230-237 file naming)
@@ -481,3 +512,43 @@ def make_scuba_loader(args, variant: str):
     )
     ds, _ = build_dataset(False, True, cfg)
     return make_eval_loader(ds, args)
+
+
+def make_hat_loader_factory(args):
+    """-> (make_loader(version, split) -> test DataLoader, versions tuple),
+    the reference harness's path conventions (ref
+    utils/eval/hat_eval.py:8-34):
+    - the HAT flavour comes from --hat_anno_path ('kinetics' in the path:
+      Kinetics-HAT, 'ucf101': UCF101-HAT), else from --data_set;
+    - when the path's last component is a version dir (far, rand or
+      close), only that version's three splits run;
+    - otherwise all three versions run, each split read from
+      <anno>/<ver>/actionswap_<ver>_<split>.pickle, or from a flat
+      <anno>/actionswap_<ver>_<split>.pickle."""
+    from devias_tpu_torch.data import build_dataset
+
+    anno = args.hat_anno_path.rstrip("/")
+    low = anno.lower()
+    if "kinetics" in low:
+        data_set = "Kinetics-HAT"
+    elif "ucf101" in low:
+        data_set = "UCF101-HAT"
+    elif args.data_set.endswith("-HAT"):
+        data_set = args.data_set
+    else:
+        data_set = {"Kinetics-400": "Kinetics-HAT"}.get(args.data_set, "UCF101-HAT")
+
+    base = os.path.basename(anno)
+    versioned = base in ("far", "rand", "close")
+    versions = (base,) if versioned else ("far", "rand", "close")
+
+    def make_hat_loader(ver, split):
+        candidates = [os.path.join(anno, f"actionswap_{ver}_{split}.pickle")]
+        if not versioned:
+            candidates.insert(0, os.path.join(anno, ver, f"actionswap_{ver}_{split}.pickle"))
+        path = next((c for c in candidates if os.path.exists(c)), candidates[0])
+        cfg = make_data_config(args, data_set=data_set, anno_path=path, test_num_segment=2, test_num_crop=3)
+        ds, _ = build_dataset(False, True, cfg)
+        return make_eval_loader(ds, args)
+
+    return make_hat_loader, versions

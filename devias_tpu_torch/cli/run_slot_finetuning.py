@@ -11,9 +11,16 @@ plain version.
 Parameters are initialised from `torch.Generator`s seeded by `--seed`
 (student) and `--seed + 1` (teacher). Modes: training (the slot train step
 with FAME, validation each epoch with best-checkpoint tracking, final test
-and merge), `--eval`, `--eval_scene`, `--run_scuba` and `--run_knn` in the
-JAX CLI's dispatch order. `main` returns what it ran: per-epoch loop times
-and the final numbers, or the evaluations' results.
+and merge), `--hat_eval` (alone, with action or `--eval_scene` targets),
+else `--eval`, `--eval_scene`, `--run_scuba` and `--run_knn`, in the JAX
+CLI's dispatch order. `main` returns what it ran: per-epoch loop times and
+the final numbers, or the evaluations' results.
+
+Several processes (torchrun, or DEVIAS_TPU_COORDINATOR/NUM_PROCS/PROC_ID)
+train data-parallel, one data row per process; with `--sp_shards S`, S
+processes form a row's seq group. Each row reads its own shard of the
+training set, `--dist_eval` shards the test views over every process, and
+rank 0 writes the log and the checkpoints.
 """
 
 from __future__ import annotations
@@ -30,8 +37,10 @@ from devias_tpu_torch.cli.common import (
     JsonlLogger,
     build_shared_parser,
     finetune_surgery,
+    global_batch,
     make_data_config,
     make_eval_loader,
+    make_hat_loader_factory,
     make_optim_config,
     make_scuba_loader,
     make_train_loader,
@@ -41,10 +50,10 @@ from devias_tpu_torch.cli.common import (
     tiny_overrides,
     world,
 )
-from devias_tpu_torch.core.dist import make_sp_mesh, maybe_init_distributed
+from devias_tpu_torch.core.dist import make_mesh, make_sp_mesh, maybe_init_distributed
 from devias_tpu_torch.data import build_dataset
 from devias_tpu_torch.device import resolve_device
-from devias_tpu_torch.eval import final_test, merge_results, run_scuba, validation_one_epoch
+from devias_tpu_torch.eval import final_test, hat_eval, merge_results, run_scuba, validation_one_epoch
 from devias_tpu_torch.kernels.attention import HEAD_DIM
 from devias_tpu_torch.losses import SlotLossConfig
 from devias_tpu_torch.nn import create_model
@@ -162,16 +171,13 @@ def main(args=None) -> dict:
     args = args or get_args()
     reject_unported(args)
     dev = resolve_device(args.device)
-    mesh = None
-    if args.sp_shards > 1:
-        if not maybe_init_distributed(dev):
-            raise RuntimeError("--sp_shards needs a process group: launch one process per shard (torchrun, or "
-                               "DEVIAS_TPU_COORDINATOR/NUM_PROCS/PROC_ID)")
-        mesh = make_sp_mesh(args.sp_shards)
-    elif maybe_init_distributed(dev) and world()[1] > 1:
-        raise NotImplementedError("data parallelism over several processes is not ported yet: ROADMAP.md "
-                                  "queue 1, item 17")
-    rank, _ = world()
+    if not maybe_init_distributed(dev) and args.sp_shards > 1:
+        raise RuntimeError("--sp_shards needs a process group: launch one process per shard (torchrun, or "
+                           "DEVIAS_TPU_COORDINATOR/NUM_PROCS/PROC_ID)")
+    rank, size = world()
+    # (data, seq) layout: seq groups of --sp_shards, or pure data parallelism
+    sp_mesh = make_sp_mesh(args.sp_shards) if args.sp_shards > 1 else None
+    dp_mesh = make_mesh() if sp_mesh is None and size > 1 else None
     # rank-offset seeding (ref run_slot_finetuning.py:261-265)
     np.random.seed(args.seed + rank)
 
@@ -183,7 +189,7 @@ def main(args=None) -> dict:
     teacher_logits_fn = _eval_fn(teacher, dev, lambda o: o["logits"])
 
     if args.eval or args.eval_scene or args.hat_eval or args.run_scuba or args.run_knn:
-        return run_evaluations(args, model, dev, action_logits_fn, scene_logits_fn, teacher_logits_fn, rank)
+        return run_evaluations(args, model, dev, action_logits_fn, scene_logits_fn, teacher_logits_fn, rank, size)
 
     # ---- training --------------------------------------------------------
     cfg_train = make_data_config(args)
@@ -195,17 +201,18 @@ def main(args=None) -> dict:
     ds_val, _ = build_dataset(False, False, cfg_train)
     loader_val = make_eval_loader(ds_val, args)
 
-    # each rank of a seq group reads the same batch: a data axis of one
-    steps_per_epoch = len(ds_train) // (args.batch_size * args.update_freq)
+    steps_per_epoch = len(ds_train) // global_batch(args)
     if args.max_steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.max_steps_per_epoch)
     total_steps = args.epochs * steps_per_epoch
     opt_cfg = make_optim_config(args, total_steps, steps_per_epoch, agg_block_scale=args.agg_block_scale)
     opt, lr_fn = make_optimizer(model, opt_cfg, device=dev)
     state = TrainState.create(model, opt, use_ema=args.model_ema, ema_decay=args.model_ema_decay, device=dev)
-    # the step's draws (FAME, dropout, drop-path); the SP step splits its
-    # streams from a host generator
-    generator = torch.Generator(device="cpu" if mesh is not None else dev).manual_seed(args.seed)
+    # the step's draws (FAME, dropout, drop-path), in one state on every
+    # rank; a layout's step splits its streams from a host generator, and
+    # the checkpoint's one state resumes every rank
+    layout = sp_mesh is not None or dp_mesh is not None
+    generator = torch.Generator(device="cpu" if layout else dev).manual_seed(args.seed)
 
     start_epoch = args.start_epoch
     if args.resume:
@@ -236,10 +243,12 @@ def main(args=None) -> dict:
         fame=FAMEConfig(beta=args.beta, prob_aug=args.prob_aug),
         device_normalize=args.device_normalize,
     )
-    train_step = make_slot_train_step(model, teacher, opt, loss_cfg, step_cfg, lr_fn, sp_mesh=mesh, device=dev)
+    train_step = make_slot_train_step(model, teacher, opt, loss_cfg, step_cfg, lr_fn, sp_mesh=sp_mesh,
+                                      dp_mesh=dp_mesh, device=dev)
 
     logger = JsonlLogger(args.output_dir, rank == 0)
     best_scuba = [-1.0]
+    ntasks = size if args.dist_eval else 1
 
     def validate(state):
         return validation_one_epoch(loader_val, action_logits_fn, args.batch_size, device=dev)
@@ -252,7 +261,7 @@ def main(args=None) -> dict:
         try:
             scuba = run_scuba(lambda variant: make_scuba_loader(args, variant), action_logits_fn,
                               args.batch_size, os.path.join(args.output_dir or ".", f"scuba_val_ep{epoch}"),
-                              rank=rank, device=dev)
+                              num_tasks=ntasks, rank=rank, device=dev)
         except FileNotFoundError as exc:
             print(f"scuba_val skipped: {exc}")
             return None
@@ -274,7 +283,7 @@ def main(args=None) -> dict:
                 rank=rank, device=dev)
     result = {"epochs": history}
     if rank == 0:
-        top1, top5 = merge_results(os.path.join(out_dir, "test"), 1)
+        top1, top5 = merge_results(os.path.join(out_dir, "test"), ntasks)
         print(f"Final top-1 {top1:.2f} top-5 {top5:.2f}")
         logger.write({"final_top1": top1, "final_top5": top5})
         result.update(final_top1=top1, final_top5=top5)
@@ -284,19 +293,35 @@ def main(args=None) -> dict:
 
 
 def run_evaluations(args, model, device: torch.device, action_logits_fn, scene_logits_fn, teacher_logits_fn,
-                    rank: int) -> dict:
-    """The JAX CLI's dispatch order (`--hat_eval` raises before this):
-    --eval, --eval_scene, --run_scuba, --run_knn. Returns each one's
-    result."""
+                    rank: int, size: int = 1) -> dict:
+    """The JAX CLI's dispatch order: --hat_eval runs alone and returns
+    (ref run_slot_finetuning.py:604-611 exits after it), so --hat_eval
+    --eval_scene is the scene HAT only; otherwise --eval, --eval_scene,
+    --run_scuba, --run_knn. Result files merge over every process under
+    --dist_eval. Returns each one's result."""
     out_dir = args.output_dir or "."
+    ntasks = size if args.dist_eval else 1
     results = {}
+
+    if args.hat_eval:
+        make_hat_loader, versions = make_hat_loader_factory(args)
+        if args.eval_scene:
+            # scene HAT: scene logits against the teacher's argmax (ref
+            # run_slot_finetuning.py:606-609, hat_eval.py:61)
+            res = hat_eval(make_hat_loader, scene_logits_fn, args.batch_size, out_dir, versions=versions,
+                           num_tasks=ntasks, rank=rank, scene_label_fn=teacher_logits_fn, device=device)
+        else:
+            res = hat_eval(make_hat_loader, action_logits_fn, args.batch_size, out_dir, versions=versions,
+                           num_tasks=ntasks, rank=rank, device=device)
+        print("HAT:", res)
+        return {"hat": res}
 
     if args.eval:
         ds_test, _ = build_dataset(False, True, make_data_config(args))
         _final_test(make_eval_loader(ds_test, args), action_logits_fn, args.batch_size,
                     os.path.join(out_dir, "test"), rank=rank, device=device)
         if rank == 0:
-            top1, top5 = merge_results(os.path.join(out_dir, "test"), 1)
+            top1, top5 = merge_results(os.path.join(out_dir, "test"), ntasks)
             print(f"Final top-1 {top1:.2f} top-5 {top5:.2f}")
             results["eval"] = {"top1": top1, "top5": top5}
 
@@ -305,14 +330,14 @@ def run_evaluations(args, model, device: torch.device, action_logits_fn, scene_l
         _final_test(make_eval_loader(ds_test, args), scene_logits_fn, args.batch_size,
                     os.path.join(out_dir, "scene_test"), rank=rank, scene_label_fn=teacher_logits_fn, device=device)
         if rank == 0:
-            top1, top5 = merge_results(os.path.join(out_dir, "scene_test"), 1)
+            top1, top5 = merge_results(os.path.join(out_dir, "scene_test"), ntasks)
             print(f"Scene top-1 {top1:.2f} top-5 {top5:.2f}")
             results["eval_scene"] = {"top1": top1, "top5": top5}
 
     if args.run_scuba:
         # forced 2x3 views (ref run_scuba.py:19)
         res = run_scuba(lambda v: make_scuba_loader(args, v), action_logits_fn, args.batch_size, out_dir,
-                        rank=rank, device=device)
+                        num_tasks=ntasks, rank=rank, device=device)
         print("SCUBA:", res)
         results["scuba"] = res
 

@@ -15,8 +15,15 @@ along the token axis make that work, and their backward passes differ:
   loss on the same gathered tokens and so holds the whole gradient.
 
 The backbone's parameter gradients are then summed over the group
-(`reduce_backbone_grads`). This slice covers a data axis of one: a data
-axis > 1 needs shard-local FAME, which is not ported yet.
+(`reduce_backbone_grads`).
+
+Data parallelism (DP) runs one process per card, as the reference's DDP
+does: each data row of the layout reads its own shard of the batch, and
+after the micro-batch loop every gradient is averaged over the data group
+(`reduce_grads`), the one collective that stands for the gradient psum
+XLA inserts in the JAX step. A layout of D data rows and S seq ranks
+(`make_sp_mesh(S)` over D x S processes, or `make_mesh()` for S = 1)
+combines both.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
-from typing import Any, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -68,10 +75,12 @@ def maybe_init_distributed(device: DeviceLike = None) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class SPMesh:
-    """The (data, seq) process layout of sequence-parallel training. Rank
-    r is seq rank r mod seq_size of data row r // seq_size, as the JAX
-    mesh lays devices out. `data_group` is None while the data axis has one
-    row."""
+    """The (data, seq) process layout of data- and sequence-parallel
+    training. Rank r is seq rank r mod seq_size of data row r // seq_size,
+    as the JAX mesh lays devices out. `seq_group` holds this rank's data
+    row and `data_group` the ranks of its seq position across the rows;
+    either is None where its axis has one rank and no collective runs over
+    it (`make_mesh`'s seq axis, a single row's data axis)."""
 
     seq_group: Any
     seq_rank: int
@@ -86,20 +95,43 @@ class SPMesh:
         return self.data_rank * self.seq_size
 
 
+def _world() -> tuple:
+    if not dist.is_initialized():
+        raise RuntimeError("a process layout needs an initialised process group (maybe_init_distributed)")
+    return dist.get_rank(), dist.get_world_size()
+
+
+def _group(ranks: List[int], world: int):
+    """A process group of `ranks`. `dist.new_group` is collective over the
+    whole world: every rank calls this for every group, in one order."""
+    return dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
+
+
 def make_sp_mesh(seq_parallel: int) -> SPMesh:
     """A (data, seq) layout over the initialised process group, with
-    `seq_parallel` ranks per seq group. Raises when the world size is not
-    divisible by it, and for a data axis > 1 (shard-local FAME, which data
-    parallelism needs, is not ported)."""
-    if not dist.is_initialized():
-        raise RuntimeError("make_sp_mesh needs an initialised process group (maybe_init_distributed)")
-    world = dist.get_world_size()
+    `seq_parallel` ranks per seq group and world // seq_parallel data rows.
+    Every rank creates every seq group, then every data group, in rank
+    order, and keeps its own. Raises when the world size is not divisible
+    by `seq_parallel`."""
+    rank, world = _world()
     if seq_parallel < 1 or world % seq_parallel:
         raise ValueError(f"{world} processes not divisible by seq_parallel={seq_parallel}")
-    if world // seq_parallel > 1:
-        raise NotImplementedError(f"a data axis of {world // seq_parallel} (shard-local FAME) is not ported; "
-                                  f"run seq_parallel = world size")
-    return SPMesh(seq_group=dist.group.WORLD, seq_rank=dist.get_rank(), seq_size=seq_parallel)
+    rows = world // seq_parallel
+    seq_groups = [_group([d * seq_parallel + s for s in range(seq_parallel)], world) for d in range(rows)]
+    data_groups = ([_group([d * seq_parallel + s for d in range(rows)], world) for s in range(seq_parallel)]
+                   if rows > 1 else [None] * seq_parallel)
+    data_rank, seq_rank = divmod(rank, seq_parallel)
+    return SPMesh(seq_group=seq_groups[data_rank], seq_rank=seq_rank, seq_size=seq_parallel,
+                  data_group=data_groups[seq_rank], data_rank=data_rank, data_size=rows)
+
+
+def make_mesh() -> SPMesh:
+    """Pure data parallelism over the initialised process group (the JAX
+    package's `make_mesh()` with no model axis): every rank a data row of
+    one seq rank."""
+    rank, world = _world()
+    return SPMesh(seq_group=None, seq_rank=0, seq_size=1, data_group=dist.group.WORLD if world > 1 else None,
+                  data_rank=rank, data_size=world)
 
 
 def _all_gather_tokens(x: torch.Tensor, mesh: SPMesh) -> torch.Tensor:
@@ -165,14 +197,20 @@ def _draw_seeds(generator: Optional[torch.Generator], n: int) -> List[int]:
     """`n` seeds drawn from `generator`: the same on every rank that holds
     it in one state (a card generator's draw synchronises with the card)."""
     if generator is None:
-        raise ValueError("sequence-parallel training needs a torch.Generator")
+        raise ValueError("data- and sequence-parallel training need a torch.Generator")
     return torch.randint(0, 2 ** 62, (n,), generator=generator, device=generator.device).tolist()
 
 
-def split_generator(generator: torch.Generator, devices: Sequence) -> List[torch.Generator]:
-    """One new generator per entry of `devices`, seeded by draws from
-    `generator`."""
-    return [torch.Generator(device=d).manual_seed(s) for d, s in zip(devices, _draw_seeds(generator, len(devices)))]
+def rank_generators(generator: torch.Generator, mesh: SPMesh, device) -> tuple:
+    """(FAME, backbone, heads) generators of this rank, from three draws of
+    `generator`, which every rank holds in one state. Each stream is folded
+    with the data rank: the rows of a data-parallel layout mix, drop and
+    draw their own samples, as JAX's per-shard keys do, while the seq ranks
+    of a row share FAME (it runs on the row's first rank and is broadcast)
+    and the replicated heads' dropout. The backbone's is the seed source of
+    `sp_generators`; without SP the model takes the heads' generator."""
+    return tuple(torch.Generator(device=d).manual_seed(_fold(s, mesh.data_rank))
+                 for d, s in zip((device, "cpu", device), _draw_seeds(generator, 3)))
 
 
 def sp_generators(generator: torch.Generator, mesh: SPMesh, device) -> tuple:
@@ -234,14 +272,54 @@ def broadcast_from_seq_root(tensors: Sequence[torch.Tensor], mesh: SPMesh) -> No
         dist.broadcast(t, src=mesh.seq_root, group=mesh.seq_group)
 
 
+def _all_reduce_flat(tensors: List[torch.Tensor], group, scale: float = 1.0) -> None:
+    """Sum `tensors` over `group` in one all-reduce of their concatenation,
+    times `scale`, in place."""
+    if not tensors:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    if scale != 1.0:
+        flat.mul_(scale)
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
+
+
 def reduce_backbone_grads(model: nn.Module, mesh: SPMesh) -> None:
     """Sum the backbone parameters' gradients over the seq group, in one
-    all-reduce of their concatenation. Each rank's backbone saw its own
-    tokens; the agg and head gradients are the same on every rank already."""
-    grads = [p.grad for p in model.backbone_parameters() if p.grad is not None]
-    if not grads:
-        return
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.seq_group)
-    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
-        g.copy_(part.view_as(g))
+    all-reduce. Each rank's backbone saw its own tokens; the agg and head
+    gradients are the same on every rank already."""
+    _all_reduce_flat([p.grad for p in model.backbone_parameters() if p.grad is not None], mesh.seq_group)
+
+
+def reduce_grads(model: nn.Module, mesh: SPMesh) -> None:
+    """The gradient reduction of a data- and sequence-parallel step: the
+    backbone's gradients summed over the seq group, then every gradient
+    averaged over the data group, one flat all-reduce per group. Each data
+    row's loss is the mean over its own samples, so with equal local
+    batches the average is the gradient of the global batch's mean."""
+    if mesh.seq_size > 1:
+        reduce_backbone_grads(model, mesh)
+    if mesh.data_size > 1:
+        _all_reduce_flat([p.grad for p in model.parameters() if p.grad is not None], mesh.data_group,
+                         1.0 / mesh.data_size)
+
+
+def mean_over_data(values: Dict[str, torch.Tensor], mesh: SPMesh) -> Dict[str, torch.Tensor]:
+    """0-d metric tensors averaged over the data group in one all-reduce,
+    on their device (no host sync on the card)."""
+    if mesh.data_size == 1:
+        return values
+    names = list(values)
+    flat = torch.stack([values[k].float() for k in names])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.data_group)
+    return dict(zip(names, (flat / mesh.data_size).unbind()))
+
+
+def min_over_data(value: torch.Tensor, mesh: SPMesh) -> torch.Tensor:
+    """A 0-d tensor's minimum over the data group (a copy), on its device."""
+    if mesh.data_size == 1:
+        return value
+    value = value.clone()
+    dist.all_reduce(value, op=dist.ReduceOp.MIN, group=mesh.data_group)
+    return value

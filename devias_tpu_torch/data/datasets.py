@@ -11,8 +11,8 @@ Samples are dict records with channels-last clips, float32 (or uint8 with
   test:       + 'chunk', 'split'  (the flattened deterministic view grid,
               ref kinetics.py:105-122)
 
-Places365 (the still-image scene probe) and the HAT action-swap sets are
-not ported: they raise `NotImplementedError`.
+Places365 is the still-image scene probe (`PlacesDataset`); Kinetics-HAT
+and UCF101-HAT are the action-swap composites of `data/hat.py`.
 """
 
 from __future__ import annotations
@@ -264,6 +264,33 @@ def _vid(path: str) -> str:
     return os.path.basename(path).rsplit(".", 1)[0]
 
 
+class PlacesDataset:
+    """Still image inflated to a clip for the k-NN scene probe (ref
+    dataset/datasets.py:567-609)."""
+
+    def __init__(self, entries: List[FilelistEntry], cfg: DataConfig):
+        self.entries = entries
+        self.cfg = cfg
+
+    def __len__(self):
+        return len(self.entries)
+
+    def __getitem__(self, index):
+        e = self.entries[index]
+        if self.cfg.synthetic:
+            img = np.random.default_rng(index).integers(0, 256, size=(256, 256, 3), dtype=np.uint8)
+        else:
+            from PIL import Image
+
+            img = np.asarray(Image.open(e.path).convert("RGB"))
+        clip = np.repeat(img[None], self.cfg.num_frames, axis=0)
+        # the reference hard-codes Resize(256) + CenterCrop(224) for the
+        # scene probe, whatever the run's input geometry
+        # (ref dataset/datasets.py:581-586)
+        clip = T.val_transform(clip, 256, 224)
+        return {"videos": clip, "labels": np.int64(e.label), "video_id": _vid(e.path)}
+
+
 # ---------------------------------------------------------------------------
 # factory
 # ---------------------------------------------------------------------------
@@ -291,13 +318,6 @@ def _anno(cfg: DataConfig, mode: str) -> str:
     return os.path.join(cfg.data_path, name)
 
 
-def _not_ported(ds_name: str):
-    if ds_name in ("Kinetics-HAT", "UCF101-HAT"):
-        raise NotImplementedError(f"{ds_name} (data/hat.py) is not ported yet: ROADMAP.md queue 1, item 11a")
-    raise NotImplementedError(f"{ds_name} (the still-image PlacesDataset) is not ported yet: ROADMAP.md "
-                              "queue 1, item 11a")
-
-
 def build_dataset(is_train: bool, test_mode: bool, cfg: DataConfig):
     """The reference factory (ref dataset/datasets.py:18-446). Returns
     (dataset, nb_classes) — or ([seen, unseen], (739, 248)) for 'HVU-EVAL'
@@ -317,8 +337,10 @@ def build_dataset(is_train: bool, test_mode: bool, cfg: DataConfig):
             out.append(VideoDataset(entries, "validation", dataclasses.replace(cfg, anno_path=a)))
         return out, (HVU_NUM_ACTION_CLASSES, HVU_NUM_SCENE_CLASSES)
 
-    if ds_name in ("Kinetics-HAT", "UCF101-HAT", "Places365"):
-        _not_ported(ds_name)
+    if ds_name in ("Kinetics-HAT", "UCF101-HAT"):
+        from devias_tpu_torch.data.hat import HATDataset
+
+        return HATDataset(cfg, mode), cfg.nb_classes
 
     if ds_name == "SCUBA":
         entries = read_filelist(_anno(cfg, mode), cfg.data_prefix, fmt="with_length")
@@ -332,6 +354,9 @@ def build_dataset(is_train: bool, test_mode: bool, cfg: DataConfig):
     if ds_name == "SSV2":
         entries = read_filelist(_anno(cfg, mode), cfg.data_prefix)
         return VideoDataset(entries, mode, cfg, hflip=False, tsn=True), _SIMPLE_CLASSES["SSV2"]
+
+    if ds_name == "Places365":
+        return PlacesDataset(read_filelist(_anno(cfg, mode), cfg.data_prefix), cfg), 365
 
     if ds_name == "ActivityNet":
         entries = read_filelist(_anno(cfg, mode), cfg.data_prefix, fmt="activitynet")
@@ -350,9 +375,9 @@ def knn_build_dataset(train_split: bool, cfg: DataConfig):
     splits use deterministic validation-mode transforms — the reference
     builds even the train feature bank with mode='validation' (ref
     datasets.py:474,504). Returns (dataset, nb_classes)."""
-    if cfg.data_set == "Places365":
-        _not_ported(cfg.data_set)
     mode = "train" if train_split else "validation"
+    if cfg.data_set == "Places365":
+        return PlacesDataset(read_filelist(_anno(cfg, mode), cfg.data_prefix), cfg), 365
     entries = read_filelist(_anno(cfg, mode), cfg.data_prefix)
     nb = _SIMPLE_CLASSES.get(cfg.data_set) or cfg.nb_classes
     return VideoDataset(entries, "validation", cfg), nb

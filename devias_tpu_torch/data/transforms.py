@@ -325,3 +325,8 @@ def val_transform(clip: np.ndarray, short_side: int = 224, crop_size: int = 224,
         return np.ascontiguousarray(clip, np.uint8)
     return np.ascontiguousarray(normalize_clip(clip), np.float32)
 
+
+
+def test_resize(clip: np.ndarray, short_side: int) -> np.ndarray:
+    """The test views' short-side resize, before the caller slices them."""
+    return resize_clip_short_side(clip, short_side)

@@ -89,15 +89,31 @@ def extract_slot_features(loader, feature_fn, batch_size: int, scene_label_fn=No
     )
 
 
-def gather_features_across_hosts(*arrays, n_total: int = None, local_indices: np.ndarray = None):
-    """Assemble per-process feature shards into the full bank (ref
-    run_knn.py:72-119). A no-op in one process; a group of more than one
-    process raises: data parallelism is not ported yet (ROADMAP.md queue 1,
-    item 17)."""
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError("k-NN banks across processes come with data parallelism: ROADMAP.md queue 1, "
-                                  "item 17")
-    return arrays if len(arrays) > 1 else arrays[0]
+def gather_features_across_hosts(*arrays, n_total: int, local_indices: np.ndarray):
+    """Assemble per-process feature shards into the full bank on every
+    process (ref run_knn.py:72-119 all-gathers the features and
+    index_copy_'s them into a [len(dataset), D] bank): each process's rows
+    are scattered to their dataset indices (`local_indices`) in a bank of
+    `n_total` rows, so the duplicate rows of padded shards collapse as the
+    reference's index_copy_ does. A no-op in one process. The arrays live
+    on the host, so they travel as pickled objects (`all_gather_object`),
+    which every backend carries."""
+    if not (dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1):
+        return arrays if len(arrays) > 1 else arrays[0]
+    shards = [None] * dist.get_world_size()
+    dist.all_gather_object(shards, (local_indices, arrays))
+    idx_all = np.concatenate([np.asarray(idx) for idx, _ in shards])
+
+    def assemble(i):
+        if arrays[i] is None:
+            return None
+        rows = np.concatenate([a[i] for _, a in shards])
+        bank = np.zeros((n_total,) + rows.shape[1:], rows.dtype)
+        bank[idx_all] = rows  # duplicate indices overwrite with identical rows
+        return bank
+
+    out = tuple(assemble(i) for i in range(len(arrays)))
+    return out if len(out) > 1 else out[0]
 
 
 def save_knn_features(output_dir: str, data_set: str, banks: Dict[str, np.ndarray]):

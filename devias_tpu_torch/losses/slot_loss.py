@@ -8,7 +8,7 @@ noted where it is applied.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,11 +38,16 @@ def bce_with_logits(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return (F.softplus(x) - x * y).mean(dim=-1)
 
 
-def pad_teacher_logits(teacher_scene_logit: torch.Tensor, num_action_classes: int) -> torch.Tensor:
+def pad_teacher_logits(teacher_scene_logit: torch.Tensor, num_action_classes: int,
+                       batch_min: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Prepend an action block filled with (the batch's smallest logit - 1),
-    so the scene class lands at argmax + num_action_classes."""
+    so the scene class lands at argmax + num_action_classes. `batch_min`
+    gives the smallest logit of a batch spread over several processes (the
+    JAX step takes it over the global batch); by default it is this
+    tensor's."""
     t = teacher_scene_logit.float()
-    pad = (t.min() - 1.0).expand(t.shape[0], num_action_classes)
+    low = t.min() if batch_min is None else batch_min
+    pad = (low - 1.0).expand(t.shape[0], num_action_classes)
     return torch.cat([pad, t], dim=1)
 
 
@@ -79,8 +84,10 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def devias_slot_loss(student: Dict[str, torch.Tensor], teacher_scene_logit: torch.Tensor,
                      target: torch.Tensor, fg_mask: torch.Tensor, fg_masks_per_frames: torch.Tensor,
-                     cfg: SlotLossConfig) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+                     cfg: SlotLossConfig, teacher_min: Optional[torch.Tensor] = None,
+                     ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (total loss, action logits [B, C], the five loss terms).
+    `teacher_min` is `pad_teacher_logits`' `batch_min`.
 
     'matching': slots are matched to {action, scene}; the action slot takes
     cross-entropy, the mask-distill MSE against `fg_masks_per_frames` and
@@ -96,7 +103,7 @@ def devias_slot_loss(student: Dict[str, torch.Tensor], teacher_scene_logit: torc
     fg_mask = fg_mask.float()
     fg_masks_per_frames = fg_masks_per_frames.float()
 
-    teacher_padded = pad_teacher_logits(teacher_scene_logit, cfg.num_action_classes)
+    teacher_padded = pad_teacher_logits(teacher_scene_logit, cfg.num_action_classes, teacher_min)
     scene_target = teacher_scene_logit.float().argmax(dim=1) + cfg.num_action_classes
 
     if cfg.slot_matching_method == "hard_select":

@@ -2,17 +2,24 @@
 DEVIAS slot train step.
 
 The slot train step, per micro-batch of `update_freq`: the optional uint8
-or I420 unpack, FAME (mixed clips and patch-grid foreground masks), the
-frozen teacher's forward on the mixed clips under `no_grad`, the student's
-forward in `train()` mode, `devias_slot_loss` and its backward; the f32
-gradients of the micro-batches are summed and divided by their number, and
-one optimizer step follows. The sequence-parallel variant (`sp_mesh`)
-runs FAME once per seq group and broadcasts it, the teacher on the full
-clips, the student's backbone on this rank's frames
+or I420 unpack, FAME (mixed clips and patch-grid foreground masks; run
+independently on each of `num_data_shards` blocks of the micro-batch when
+they divide it), the frozen teacher's forward on the mixed clips under
+`no_grad`, the student's forward in `train()` mode, `devias_slot_loss` and
+its backward; the f32 gradients of the micro-batches are summed and
+divided by their number, and one optimizer step follows.
+
+Two process layouts (`core/dist.py`) extend it. Data parallelism
+(`dp_mesh`, `make_mesh()`): each rank runs the step on its own local
+batch and the gradients and metrics are averaged over the data group
+before the optimizer step. Sequence parallelism (`sp_mesh`,
+`make_sp_mesh(S)`) runs FAME once per seq group and broadcasts it, the
+teacher on the full clips, the student's backbone on this rank's frames
 (`core/dist.py::seq_parallel_tokens`) and the agg, heads and loss on the
-gathered tokens, and sums the backbone's gradients over the group before
-the optimizer step. HVU, classification and multi-task steps, the
-segformer mix and the pipeline-parallel variant are not ported yet.
+gathered tokens, and sums the backbone's gradients over the group; with
+more than one data row it also averages over the data group. HVU,
+classification and multi-task steps, the segformer mix and the
+pipeline-parallel variant are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,9 +35,11 @@ from devias_tpu_torch.aug.fame import IMAGENET_MEAN, IMAGENET_STD, FAMEConfig, f
 from devias_tpu_torch.core.dist import (
     SPMesh,
     broadcast_from_seq_root,
-    reduce_backbone_grads,
+    mean_over_data,
+    min_over_data,
+    rank_generators,
+    reduce_grads,
     seq_parallel_tokens,
-    split_generator,
 )
 from devias_tpu_torch.data.yuv import i420_to_rgb
 from devias_tpu_torch.device import DeviceLike, require_on, resolve_device
@@ -46,7 +55,10 @@ class TrainStepConfig:
     update_freq: int = 1  # gradient accumulation
     use_fame: bool = True
     fame: FAMEConfig = FAMEConfig()
-    num_data_shards: int = 1  # shard-local FAME comes with the parallel modes
+    # FAME runs independently on this many contiguous blocks of each
+    # micro-batch (JAX's per-device shards; each rank of a data-parallel
+    # run is one block of its own)
+    num_data_shards: int = 1
     # uint8 clips, converted to [0, 1] in the step; the student must be built
     # with input_norm=True
     device_normalize: bool = False
@@ -64,62 +76,88 @@ def to_device(videos: Union[np.ndarray, torch.Tensor], device: torch.device) -> 
     return x.to(device, non_blocking=True)
 
 
+def _fame(videos: torch.Tensor, labels: torch.Tensor, step_cfg: TrainStepConfig,
+          generator: Optional[torch.Generator], draws):
+    """FAME on the whole micro-batch, or on each of `num_data_shards`
+    contiguous blocks with the block's own draws (one generator stream in
+    block order, or `draws[k]` for block k) when they divide it."""
+    mean, std = ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)) if step_cfg.device_normalize else (IMAGENET_MEAN, IMAGENET_STD)
+    n, B = step_cfg.num_data_shards, videos.shape[0]
+    if n <= 1 or B % n:
+        videos, labels, (fg_mask, fg_pf) = fame_augment(videos, labels, step_cfg.fame, generator=generator,
+                                                        draws=draws, mean=mean, std=std)
+        return videos, labels, fg_mask, fg_pf
+    if draws is not None and len(draws) != n:
+        raise ValueError(f"draws holds {len(draws)} shards; num_data_shards is {n}")
+    b = B // n
+    parts = [fame_augment(videos[k * b:(k + 1) * b], labels[k * b:(k + 1) * b], step_cfg.fame, generator=generator,
+                          draws=None if draws is None else draws[k], mean=mean, std=std) for k in range(n)]
+    return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]),
+            torch.cat([p[2][0] for p in parts]), torch.cat([p[2][1] for p in parts]))
+
+
 def mix_clips(videos: torch.Tensor, labels: torch.Tensor, step_cfg: TrainStepConfig,
-              generator: Optional[torch.Generator] = None, draws: Optional[Dict] = None,
-              sp_mesh: Optional[SPMesh] = None):
+              generator: Optional[torch.Generator] = None, draws=None, mesh: Optional[SPMesh] = None):
     """FAME on unpacked clips, or none: (videos, labels, fg_mask
     [B, (H/16)(W/16)], fg_pf [B, T/2 (H/16)(W/16)]), the masks zero without
-    FAME. With `sp_mesh`, FAME runs on the seq group's first rank only and
-    its outputs are broadcast to the group, whatever the other ranks'
-    generators hold."""
+    FAME. `draws`: one {"perm", "keep"} dict, or one per block of
+    `num_data_shards`. With a `mesh` of more than one seq rank, FAME runs
+    on the seq group's first rank only and its outputs are broadcast to the
+    group, whatever the other ranks' generators hold."""
     B, T, H, W = videos.shape[:4]
     n_sp = (H // 16) * (W // 16)
     if not step_cfg.use_fame:
         zeros = [torch.zeros(B, n, device=videos.device) for n in (n_sp, (T // 2) * n_sp)]
         return (videos, labels, *zeros)
-    if sp_mesh is None or sp_mesh.seq_rank == 0:
-        mean, std = ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)) if step_cfg.device_normalize else (IMAGENET_MEAN, IMAGENET_STD)
-        videos, labels, (fg_mask, fg_pf) = fame_augment(videos, labels, step_cfg.fame, generator=generator,
-                                                        draws=draws, mean=mean, std=std)
+    seq = mesh is not None and mesh.seq_size > 1
+    if not seq or mesh.seq_rank == 0:
+        videos, labels, fg_mask, fg_pf = _fame(videos, labels, step_cfg, generator, draws)
     else:
         videos, labels = torch.empty_like(videos), torch.empty_like(labels)
         fg_mask = torch.empty(B, n_sp, device=videos.device)
         fg_pf = torch.empty(B, (T // 2) * n_sp, device=videos.device)
-    if sp_mesh is not None:
-        broadcast_from_seq_root([videos, labels, fg_mask, fg_pf], sp_mesh)
+    if seq:
+        broadcast_from_seq_root([videos, labels, fg_mask, fg_pf], mesh)
     return videos, labels, fg_mask, fg_pf
 
 
 def slot_loss(model: nn.Module, teacher: nn.Module, videos: torch.Tensor, labels: torch.Tensor,
               loss_cfg: SlotLossConfig, step_cfg: TrainStepConfig, generator: Optional[torch.Generator] = None,
-              draws: Optional[Dict] = None, sp_mesh: Optional[SPMesh] = None):
+              draws=None, sp_mesh: Optional[SPMesh] = None, dp_mesh: Optional[SPMesh] = None):
     """One micro-batch of the slot train step up to its loss: the uint8 or
     I420 unpack, FAME, the teacher under `no_grad` on the mixed clips, the
     student's forward and `devias_slot_loss`. Returns (total loss, the
     seven metrics detached); the caller runs the backward.
 
-    With `sp_mesh`, every rank of the seq group passes the same clips and
-    a `generator` in the same state. Three generators are split from it:
-    FAME's, used on the group's first rank only, whose mixed clips, labels
-    and masks are broadcast (GSPMD computes them once; it also keeps
-    `index_add_`'s atomic order on the card from giving ranks different
-    mixes); the backbone's (`seq_parallel_tokens`: token dropout per rank,
-    drop-path shared); and the one of the replicated heads, shared."""
+    With a layout (`sp_mesh` or `dp_mesh`), every rank passes a `generator`
+    in the same state, and three streams are split from it per data row
+    (`core/dist.py::rank_generators`): FAME's, used on the seq group's
+    first rank only, whose mixed clips, labels and masks are broadcast
+    (GSPMD computes them once; it also keeps `index_add_`'s atomic order on
+    the card from giving ranks different mixes); the backbone's
+    (`seq_parallel_tokens`: token dropout per rank, drop-path shared along
+    seq); and the one of the replicated heads, shared along seq. Every rank
+    of a seq group passes the same clips."""
     if step_cfg.wire_format == "yuv420":
         videos = i420_to_rgb(videos)
     elif step_cfg.device_normalize:
         videos = videos.float() / 255.0
+    mesh = sp_mesh if sp_mesh is not None else dp_mesh
     fame_gen = backbone_gen = head_gen = generator
-    if sp_mesh is not None:
-        fame_gen, backbone_gen, head_gen = split_generator(generator, [videos.device, "cpu", videos.device])
-    videos, labels, fg_mask, fg_pf = mix_clips(videos, labels, step_cfg, fame_gen, draws, sp_mesh)
+    if mesh is not None:
+        fame_gen, backbone_gen, head_gen = rank_generators(generator, mesh, videos.device)
+    videos, labels, fg_mask, fg_pf = mix_clips(videos, labels, step_cfg, fame_gen, draws, mesh)
     with torch.no_grad():
         teacher_logits = teacher(videos)["logits"]
     tokens = None
     if sp_mesh is not None:
         tokens = seq_parallel_tokens(model, videos, sp_mesh, deterministic=False, generator=backbone_gen)
     student = model(videos, generator=head_gen, tokens=tokens)
-    total, action_logits, parts = devias_slot_loss(student, teacher_logits, labels, fg_mask, fg_pf, loss_cfg)
+    # the teacher pad's batch minimum is the global micro-batch's, as in
+    # the JAX step (the reference's DDP ranks take their own)
+    teacher_min = None if mesh is None else min_over_data(teacher_logits.float().min(), mesh)
+    total, action_logits, parts = devias_slot_loss(student, teacher_logits, labels, fg_mask, fg_pf, loss_cfg,
+                                                   teacher_min)
     acc = (action_logits.argmax(dim=-1) == labels).float().mean()
     metrics = {k: v.detach() for k, v in parts.items()}
     return total, {**metrics, "loss": total.detach(), "class_acc": acc}
@@ -128,7 +166,7 @@ def slot_loss(model: nn.Module, teacher: nn.Module, videos: torch.Tensor, labels
 def make_slot_train_step(model: nn.Module, teacher: nn.Module, optimizer: torch.optim.Optimizer,
                          loss_cfg: SlotLossConfig, step_cfg: TrainStepConfig = TrainStepConfig(),
                          lr_fn: Optional[Callable[[int], float]] = None, segformer_apply=None,
-                         pp_mesh=None, sp_mesh=None, device: DeviceLike = None) -> Callable:
+                         pp_mesh=None, sp_mesh=None, dp_mesh=None, device: DeviceLike = None) -> Callable:
     """DEVIAS slot train step `step(state, batch, generator=None,
     draws=None, host_metrics=False) -> metrics`.
 
@@ -137,25 +175,35 @@ def make_slot_train_step(model: nn.Module, teacher: nn.Module, optimizer: torch.
     where the student, the teacher and the optimizer's parameters must
     already be; B = update_freq x micro-batch. Dropout, drop-path and FAME
     draw from `generator`, or from the step's own generator (seed 0).
-    `draws` fixes FAME's draws: one {"perm", "keep"} dict per micro-batch
-    (a list), or one dict when update_freq is 1.
+    `draws` fixes FAME's draws: one entry per micro-batch (a list), or one
+    entry when update_freq is 1; an entry is a {"perm", "keep"} dict, or a
+    list of one such dict per block when `num_data_shards` blocks divide
+    the micro-batch.
 
+    `dp_mesh` (`core/dist.py::make_mesh`) selects data-parallel training:
+    each rank calls the step with its own local batch, and the gradients
+    and metrics are averaged over the data group before the optimizer
+    step, which is then the same on every rank. Every local batch must have
+    the same size (each rank's loss is a mean over its own samples).
     `sp_mesh` (`core/dist.py::make_sp_mesh`) selects sequence-parallel
-    training: every rank of the seq group calls the step with the same
-    batch and generator state (see `slot_loss`), and the backbone's
-    gradients are summed over the group before the optimizer step, which
-    is then the same on every rank. Its own generator lives on the CPU: the
-    streams are split from host draws, and a card generator passed in makes
-    each micro-batch's draw wait for the card.
+    training: every rank of a seq group calls the step with the same batch
+    (see `slot_loss`), the backbone's gradients are summed over the group,
+    and a layout of several data rows also averages over the data group.
+    Under either, every rank passes a generator in the same state, and the
+    step's own generator lives on the CPU: the streams are split from host
+    draws, and a card generator passed in makes each micro-batch's draw
+    wait for the card.
 
     Returns the seven loss and accuracy metrics averaged over the
-    micro-batches, `grad_norm` (before clipping) and, with `lr_fn`, `lr` at
-    the step before the update: 0-d device tensors, or host floats with
-    `host_metrics=True` (which synchronises)."""
+    micro-batches (and the data group), `grad_norm` (before clipping) and,
+    with `lr_fn`, `lr` at the step before the update: 0-d device tensors,
+    or host floats with `host_metrics=True` (which synchronises)."""
     if segformer_apply is not None or pp_mesh is not None:
         raise NotImplementedError("the segformer mix and the pipeline-parallel step are not ported")
-    if step_cfg.num_data_shards > 1:
-        raise NotImplementedError("shard-local FAME (num_data_shards > 1) comes with the parallel modes")
+    if sp_mesh is not None and dp_mesh is not None:
+        raise ValueError("sp_mesh and dp_mesh are exclusive: a layout with seq ranks is an sp_mesh")
+    if dp_mesh is not None and dp_mesh.seq_size > 1:
+        raise ValueError(f"dp_mesh has {dp_mesh.seq_size} seq ranks; pass it as sp_mesh")
     if step_cfg.wire_format not in ("rgb", "yuv420"):
         raise ValueError(f"unknown wire_format {step_cfg.wire_format!r}")
     if step_cfg.wire_format == "yuv420" and not step_cfg.device_normalize:
@@ -164,13 +212,14 @@ def make_slot_train_step(model: nn.Module, teacher: nn.Module, optimizer: torch.
     require_on(model, dev)
     require_on(teacher, dev, "teacher")
     teacher.eval().requires_grad_(False)
-    # the SP step splits its streams from host draws (`slot_loss`); a card
-    # generator would make each such draw wait for the card
-    own_generator = torch.Generator(device="cpu" if sp_mesh is not None else dev).manual_seed(0)
+    mesh = sp_mesh if sp_mesh is not None else dp_mesh
+    # a layout's step splits its streams from host draws (`slot_loss`); a
+    # card generator would make each such draw wait for the card
+    own_generator = torch.Generator(device="cpu" if mesh is not None else dev).manual_seed(0)
     U = step_cfg.update_freq
 
     def step(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None,
-             draws: Optional[Union[Dict, Sequence[Dict]]] = None, host_metrics: bool = False):
+             draws: Optional[Union[Dict, Sequence]] = None, host_metrics: bool = False):
         if state.optimizer is not optimizer:
             raise ValueError("the state holds another optimizer than the step was made with")
         gen = own_generator if generator is None else generator
@@ -189,11 +238,12 @@ def make_slot_train_step(model: nn.Module, teacher: nn.Module, optimizer: torch.
         for u in range(U):
             sl = slice(u * mb, (u + 1) * mb)
             total, m = slot_loss(model, teacher, videos[sl], labels[sl], loss_cfg, step_cfg, gen,
-                                 None if draws is None else draws[u], sp_mesh)
+                                 None if draws is None else draws[u], sp_mesh, dp_mesh)
             total.backward()
             sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
-        if sp_mesh is not None:
-            reduce_backbone_grads(model, sp_mesh)
+        if mesh is not None:
+            reduce_grads(model, mesh)
+            sums = mean_over_data(sums, mesh)
         if U > 1:
             for p in model.parameters():
                 if p.grad is not None:

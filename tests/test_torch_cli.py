@@ -56,7 +56,7 @@ def test_flag_parity():
             assert got[dest] == value, dest
 
 
-@pytest.mark.parametrize("flags", [["--pp_stages", "2"], ["--tp_size", "2"], ["--zero1"], ["--fsdp"], ["--hat_eval"],
+@pytest.mark.parametrize("flags", [["--pp_stages", "2"], ["--tp_size", "2"], ["--zero1"], ["--fsdp"],
                                    ["--mask_model", "Segformer"], ["--teacher_int8"], ["--use_checkpoint"]])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

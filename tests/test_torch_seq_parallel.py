@@ -212,7 +212,7 @@ def _rank_main(rank: int, out: Path) -> None:
     res["rejects"] = {
         "cls_token": raises(NotImplementedError, lambda: seq_parallel_tokens(plain, videos, mesh)),
         "frames": raises(ValueError, lambda: seq_parallel_tokens(model, videos[:, :12], mesh)),
-        "data_axis": raises(NotImplementedError, lambda: make_sp_mesh(2)),
+        "no_seq_rank": raises(ValueError, lambda: make_sp_mesh(0)),
         "not_divisible": raises(ValueError, lambda: make_sp_mesh(3)),
         "no_generator": raises(ValueError, lambda: seq_parallel_tokens(model, videos, mesh, deterministic=False)),
     }

@@ -196,6 +196,6 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         make_optimizer(model, OptimConfig(opt="sgd"), device="cpu")
     with pytest.raises(NotImplementedError):
         make_slot_train_step(model, teacher, opt, SlotLossConfig(5, 4), pp_mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_slot_train_step(model, teacher, opt, SlotLossConfig(5, 4), TrainStepConfig(num_data_shards=2),
+    with pytest.raises(ValueError, match="exclusive"):
+        make_slot_train_step(model, teacher, opt, SlotLossConfig(5, 4), sp_mesh=object(), dp_mesh=object(),
                              device="cpu")
