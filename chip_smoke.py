@@ -103,7 +103,26 @@ prints one JSON line, and the first failure exits non-zero:
    action targets and once with --eval_scene, on the CLI's seeded student
    and scene teacher: every split's result files, finite accuracies, and
    12 K1-fwd per student batch (12 more per teacher batch in the scene
-   run).
+   run). The dp_train ranks also time `over_data_group`'s gather of the
+   12-clip micro-batch (float32 and bfloat16), the cost FAME-HVU and mixup
+   pay under data parallelism.
+11. hvu_train: the HVU train step (`make_hvu_train_step`) on the HVU CLI's
+   model (739 + 248 head, 4 latents, 4 untied agg layers, K1) with
+   FAME-HVU at B=12: TRAIN_STEPS counted steps (12 K1-fwd stats and 12
+   K1-bwd per step), HVU_WINDOW timed ones (ms/step, clips/s, peak
+   memory), and hvu_vs_plain, the fused against the plain step on 2 clips
+   as train_vs_plain holds the slot step.
+12. hvu_cli: `run_slot_finetuning_hvu` in-process at full width on
+   synthetic HVU filelists, a 2-step epoch with validation, then
+   `eval_slot_finetuning_hvu` on a SEEN/UNSEEN pair with its checkpoint:
+   the four blocks finite, K1 counts exact.
+13. class_train: `make_classification_train_step` on
+   `vit_base_patch16_224` as `run_class_finetuning` builds it, mixup /
+   CutMix on, at 400 classes mean-pooled and at 365 with the CLS token
+   (1569 tokens): counted and timed steps and class_vs_plain for each.
+14. class_cli: `run_class_finetuning` for a 2-step epoch with `--opt sgd`,
+   `--use_cls` and `--scene_labels_from` a teacher checkpoint the phase
+   writes, then `--eval` on its checkpoint (the same top-1).
 
 Then one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 Exits non-zero, printing no result, without CUDA or without the port.
@@ -1419,6 +1438,29 @@ def _flagship_step(step_cfg, **layout):
     return student, state, step, grads
 
 
+def _time_data_group_gather(videos: np.ndarray, mesh) -> dict:
+    """The cost of `over_data_group` (FAME-HVU's and mixup's batch ops
+    under DP): this rank's clips gathered into the global micro-batch on
+    the card, in float32 and in bfloat16, DP_WINDOW times each after one
+    warm-up; bytes of the gathered tensor and host-clock ms per gather."""
+    from devias_tpu_torch.core.dist import over_data_group
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(videos).to("cuda", dtype)
+        mine = over_data_group(lambda v: (v,), (x,), mesh)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_WINDOW):
+            over_data_group(lambda v: (v,), (x,), mesh)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / DP_WINDOW * 1e3
+        if not torch.equal(mine, x):
+            raise RuntimeError("over_data_group did not give this rank its own rows back")
+        out[str(dtype).split(".")[1]] = {"bytes": mesh.data_size * x.numel() * x.element_size(), "ms": ms}
+    return out
+
+
 def dp_rank_main(rank: int, port: int, out: str) -> None:
     """One rank of the dp_train phase, in a process of its own: a gloo
     group of DP_RANKS ranks on the one card, the data-parallel flagship
@@ -1453,6 +1495,7 @@ def dp_rank_main(rank: int, port: int, out: str) -> None:
         res["ms_per_step"] = (time.perf_counter() - t0) / DP_WINDOW * 1e3
         res["launches"] = attn.launch_counts()
         res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        res["gather"] = _time_data_group_gather(mine["videos"], make_mesh())
         if rank == 0:
             del student, state, step, params
             torch.cuda.empty_cache()
@@ -1497,7 +1540,8 @@ def phase_dp_train(attn, card):
            "clips_per_rank": B // DP_RANKS, "steps": 1 + DP_WINDOW, "metrics": m, "metrics_one_process": m_ref,
            "launches": [r["launches"] for r in ranks], "loss_tol": TRAIN_LOSS_TOL, "tol": TRAIN_TOL,
            "gloo_one_card_ms_per_step": [r["ms_per_step"] for r in ranks],
-           "peak_memory_gib": [r["peak_memory_gib"] for r in ranks], "grads": {}, "params": {}}
+           "peak_memory_gib": [r["peak_memory_gib"] for r in ranks], "grads": {}, "params": {},
+           "data_group_gather": [r["gather"] for r in ranks]}
     ok = np.isfinite(m["loss"]) and abs(m["loss"] - m_ref["loss"]) <= TRAIN_LOSS_TOL * abs(m_ref["loss"])
     ok &= abs(m["grad_norm"] - m_ref["grad_norm"]) <= TRAIN_TOL * m_ref["grad_norm"]
     for kind in ("grads", "params"):
@@ -1612,6 +1656,353 @@ def phase_hat(attn, card):
     return {name: sum(r["launches"][name] for r in runs.values()) for name in runs["action"]["launches"]}
 
 
+# hvu_train / hvu_cli: the HVU CLI's model (739 + 248 head, 4 latents, 4
+# untied agg layers, its default drop-path 0.1) with FAME-HVU
+HVU_ACTION, HVU_SCENE = 739, 248
+HVU_WINDOW = 10
+HVU_WATCH = ("blocks.0.attn.qkv.weight", "blocks.11.mlp.fc2.weight", "agg_block.layers.3.0.fn.to_q.weight")
+
+
+def _hvu_parts(argv=()):
+    """The HVU CLI's args (`--mask_model FAME`), its loss and step configs."""
+    from devias_tpu_torch.aug import FAMEConfig
+    from devias_tpu_torch.cli import run_slot_finetuning_hvu as hvu
+    from devias_tpu_torch.losses import SlotLossConfig
+    from devias_tpu_torch.train import TrainStepConfig
+
+    args = hvu.get_args(["--mask_model", "FAME", *argv])
+    loss_cfg = SlotLossConfig(HVU_ACTION, HVU_SCENE, mask_prediction_loss_weight=args.mask_prediction_loss_weight,
+                              mask_distill_loss_weight=args.mask_distill_loss_weight)
+    step_cfg = TrainStepConfig(use_fame=True, fame=FAMEConfig(beta=args.beta, prob_aug=args.prob_aug))
+    return args, loss_cfg, step_cfg
+
+
+def _hvu_batch(n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return {"videos": rng.standard_normal((n,) + CLIPS[1:], dtype=np.float32),
+            "labels": rng.integers(0, HVU_ACTION, size=n), "scene_labels": rng.integers(0, HVU_SCENE, size=n)}
+
+
+def _held(row: dict, loss_f: float, loss_p: float, grads_f: dict, grads_p: dict) -> bool:
+    """train_vs_plain's limits: the loss within TRAIN_LOSS_TOL of the plain
+    step's, each watched gradient within TRAIN_TOL of the plain gradient's
+    largest magnitude; the numbers go into `row`."""
+    row.update(loss_fused=loss_f, loss_plain=loss_p, loss_tol=TRAIN_LOSS_TOL, grad_tol=TRAIN_TOL, grads={})
+    ok = np.isfinite(loss_f) and abs(loss_f - loss_p) <= TRAIN_LOSS_TOL * abs(loss_p)
+    for n in grads_f:
+        err = (grads_f[n] - grads_p[n]).abs().max().item()
+        ref = grads_p[n].abs().max().item()
+        finite = bool(torch.isfinite(grads_f[n]).all().item())
+        row["grads"][n] = {"max_abs_err": err, "max_abs_plain": ref, "finite": finite}
+        ok &= finite and ref > 0 and err <= TRAIN_TOL * ref
+    return ok
+
+
+def _fused_vs_plain(build, loss_of, watch):
+    """(loss, watched gradients) of one micro-batch through `build(fused)`'s
+    model in train mode, for fused and plain attention on the same weights,
+    the same draws and a generator in the same state."""
+    out = {}
+    for fused in (True, False):
+        model = build(fused).train()
+        total = loss_of(model, torch.Generator(device="cuda").manual_seed(3))
+        total.backward()
+        params = dict(model.named_parameters())
+        out[fused] = (total.item(), {n: params[n].grad.float().clone() for n in watch})
+        del model, total, params
+        torch.cuda.empty_cache()
+    return out[True], out[False]
+
+
+def phase_hvu_train(attn, card):
+    """The HVU train step (`make_hvu_train_step`) at full width on the HVU
+    CLI's model, B=12, FAME-HVU: TRAIN_STEPS counted steps (12 K1-fwd stats
+    and 12 K1-bwd per step, no teacher, so no K1-fwd), finite metrics,
+    parameters changed; HVU_WINDOW timed steps (ms/step, clips/s, peak
+    memory); then hvu_vs_plain: one micro-batch of 2 clips with fixed FAME
+    draws through fused and plain attention, held as train_vs_plain holds
+    the slot step. Returns the K1 counts and ms per step."""
+    from devias_tpu_torch.cli import run_slot_finetuning_hvu as hvu
+    from devias_tpu_torch.train import OptimConfig, TrainState, make_hvu_train_step, make_optimizer
+    from devias_tpu_torch.train.step import hvu_loss
+
+    dev = torch.device("cuda")
+    args, loss_cfg, step_cfg = _hvu_parts()
+    t0 = time.perf_counter()
+    model = hvu.build_hvu_model(args, dev)
+    opt, lr_fn = make_optimizer(model, OptimConfig(lr=5e-4, total_steps=1000, warmup_steps=10,
+                                                   agg_block_scale=args.agg_block_scale))
+    state = TrainState.create(model, opt)
+    step = make_hvu_train_step(model, opt, loss_cfg, step_cfg, lr_fn)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = _hvu_batch(B, 0)
+    params = dict(model.named_parameters())
+    before = {n: params[n].detach().clone() for n in HVU_WATCH}
+    setup_s = time.perf_counter() - t0
+
+    attn.reset_launch_counts()
+    history = [step(state, batch, generator=gen, host_metrics=True) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    counts = attn.launch_counts()
+    changed = {n: (params[n].detach() - before[n]).abs().max().item() for n in HVU_WATCH}
+    finite = all(np.isfinite(v) for m in history for v in m.values())
+    counted_steps = state.step
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(HVU_WINDOW):
+        metrics = step(state, batch, generator=gen)
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    ms = window_s / HVU_WINDOW * 1e3
+    emit({"phase": "hvu_train", "card": card, "steps": TRAIN_STEPS, "clips_per_step": B, "setup_s": setup_s,
+          "metrics": history, "launches": counts, "param_max_change": changed, "window_steps": HVU_WINDOW,
+          "ms_per_step": ms, "clips_per_s": HVU_WINDOW * B / window_s,
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "loss": float(metrics["loss"])})
+    want = {name: 12 * TRAIN_STEPS if name in ("K1-fwd-stats", "K1-bwd") else 0 for name in counts}
+    if counts != want:
+        fail(f"hvu_train launches {counts}; want {want} (12 K1-fwd stats and 12 K1-bwd per step)")
+    if not finite or counted_steps != TRAIN_STEPS or not all(v > 0 for v in changed.values()):
+        fail(f"hvu_train steps wrong: finite={finite} step={counted_steps} changes={changed}")
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    del model, opt, state, step, params
+    torch.cuda.empty_cache()
+
+    videos = torch.from_numpy(_hvu_batch(2, 1)["videos"]).to(dev)
+    small = _hvu_batch(2, 1)
+    action, scene = (torch.from_numpy(small[k]).to(dev) for k in ("labels", "scene_labels"))
+    draws = {"perm": torch.tensor([1, 0], device=dev), "keep": torch.tensor([True, True], device=dev)}
+
+    def build(fused):
+        m = hvu.build_hvu_model(args, dev) if fused else _plain(hvu.build_hvu_model(args, dev))
+        m.load_state_dict(sd)
+        return m
+
+    (loss_f, grads_f), (loss_p, grads_p) = _fused_vs_plain(
+        build, lambda m, g: hvu_loss(m, videos, action, scene, loss_cfg, step_cfg, g, draws)[0], HVU_WATCH)
+    row = {"phase": "hvu_vs_plain", "card": card, "clips": 2}
+    ok = _held(row, loss_f, loss_p, grads_f, grads_p)
+    emit(row)
+    if not ok:
+        fail("fused and plain HVU train steps disagree beyond their limits")
+    return counts, ms
+
+
+def _plain(model):
+    """`model` with the plain attention in every block: each `Attention`'s
+    kernel flag turned off (a model with none fails)."""
+    from devias_tpu_torch.nn.vit import Attention
+
+    blocks = [m for m in model.modules() if isinstance(m, Attention)]
+    if not blocks or not all(m.fused for m in blocks):
+        fail("the CLI built a model without K1 in every block")
+    for m in blocks:
+        m.fused = False
+    return model
+
+
+# the hvu_cli phase: 24 training samples (2 steps of 12, each drawn twice by
+# --num_sample 2), 12 validation samples, SEEN and UNSEEN lists of 12
+HVU_CLI_TRAIN, HVU_CLI_VAL = 24, 12
+HVU_CLI_FLAGS = ["--mask_model", "FAME", "--batch_size", str(B), "--synthetic_data", "--epochs", "1"]
+
+
+def phase_hvu_cli(attn, card):
+    """`devias_tpu_torch.cli.run_slot_finetuning_hvu` in-process at full
+    width on synthetic HVU filelists and 16x240x320 clips: a 2-step epoch
+    with validation (action and scene top-1) and its checkpoint; then
+    `eval_slot_finetuning_hvu` on a SEEN/UNSEEN pair with that checkpoint:
+    the four blocks, finite. K1 counts: 12 K1-fwd stats and 12 K1-bwd per
+    step, 12 K1-fwd per validation batch and per eval batch."""
+    from devias_tpu_torch.cli import eval_slot_finetuning_hvu as hvu_eval
+    from devias_tpu_torch.cli import run_slot_finetuning_hvu as hvu
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, n in (("train.csv", HVU_CLI_TRAIN), ("val.csv", HVU_CLI_VAL), ("seen.csv", HVU_CLI_VAL),
+                        ("unseen.csv", HVU_CLI_VAL)):
+            with open(os.path.join(tmp, name), "w") as f:
+                f.write("\n".join(f"{name[0]}{i:03d} {(7 * i) % HVU_ACTION} {(5 * i) % HVU_SCENE}" for i in range(n)))
+        out = os.path.join(tmp, "out")
+        result, train_counts, train_s = _cli_run(attn, hvu, HVU_CLI_FLAGS + ["--data_path", tmp, "--output_dir", out])
+        with open(os.path.join(out, "log.txt")) as f:
+            records = [json.loads(line) for line in f if line.strip()]
+        ckpt = os.path.join(out, "ckpt", "checkpoint-0.pth")
+        if not os.path.exists(ckpt):
+            fail("the HVU CLI left no checkpoint")
+        blocks, eval_counts, eval_s = _cli_run(attn, hvu_eval, [
+            "--batch_size", str(B), "--synthetic_data", "--finetune", ckpt,
+            "--anno_path", os.path.join(tmp, "seen.csv"), os.path.join(tmp, "unseen.csv")])
+    epoch = result["epochs"][0]
+    steps = epoch["n_steps"]
+    row = {"phase": "hvu_cli", "card": card, "train_s": train_s, "n_steps": steps,
+           "loop_ms_per_step": epoch["loop_s"] * 1e3 / steps, "clips_per_step": 2 * B, "records": records,
+           "train_launches": train_counts, "eval_s": eval_s, "eval_blocks": blocks, "eval_launches": eval_counts}
+    emit(row)
+    numbers = [v for r in records for k, v in r.items() if k.startswith(("train_", "val_"))]
+    numbers += [v for b in blocks.values() for v in b.values()]
+    if steps != HVU_CLI_TRAIN // B or len(records) != 1 or "val_scene_acc1" not in records[0] \
+            or set(blocks) != {"action_seen", "scene_seen", "action_unseen", "scene_unseen"} \
+            or not all(np.isfinite(v) for v in numbers):
+        fail(f"HVU CLI results incomplete or not finite: {row}")
+    val_b = -(-HVU_CLI_VAL // B)
+    for label, got, want in (
+            ("train", train_counts, {"K1-fwd": 12 * val_b, "K1-fwd-stats": 12 * steps, "K1-bwd": 12 * steps}),
+            ("eval", eval_counts, {"K1-fwd": 12 * 2 * val_b})):
+        got = {k: v for k, v in got.items() if v}
+        if got != want:
+            fail(f"HVU CLI {label} launched {got}; want {want}")
+    return {name: train_counts[name] + eval_counts[name] for name in train_counts}
+
+
+CLASS_WINDOW = 10
+CLASS_WATCH = ("blocks.0.attn.qkv.weight", "blocks.11.mlp.fc2.weight", "head.weight")
+# (label, classes, CLS token): the baseline action model at 400 classes,
+# mean-pooled; the Places-365 scene model with the CLS token, 1569 tokens
+CLASS_CONFIGS = (("mean_pool_400", 400, False), ("cls_365", 365, True))
+
+
+def phase_class_train(attn, card):
+    """The classification train step (`make_classification_train_step`)
+    at full width on `vit_base_patch16_224` as `run_class_finetuning`
+    builds it, B=12, mixup / CutMix on (`--mixup 0.8 --cutmix 1.0`, soft
+    targets), AdamW: for each of CLASS_CONFIGS, TRAIN_STEPS counted steps
+    (12 K1-fwd stats and 12 K1-bwd per step), HVU_WINDOW timed ones
+    (ms/step), and one micro-batch of 2 clips with fixed mixup draws
+    through fused and plain attention, held as train_vs_plain holds the
+    slot step. Returns the K1 counts and ms per step by config."""
+    from devias_tpu_torch.cli import run_class_finetuning as cls_cli
+    from devias_tpu_torch.losses import soft_target_cross_entropy
+    from devias_tpu_torch.train import (
+        OptimConfig,
+        TrainState,
+        make_classification_train_step,
+        make_optimizer,
+    )
+    from devias_tpu_torch.train.step import classification_loss
+
+    dev = torch.device("cuda")
+    total_counts, ms_by = None, {}
+    for label, classes, use_cls in CLASS_CONFIGS:
+        args = cls_cli.get_args(["--nb_classes", str(classes), "--mixup", "0.8", "--cutmix", "1.0"]
+                                + (["--use_cls"] if use_cls else []))
+        criterion, mixup_cfg = cls_cli.make_criterion(args)
+        model = cls_cli.build_class_model(args, dev)
+        opt, lr_fn = make_optimizer(model, OptimConfig(lr=5e-4, total_steps=1000, warmup_steps=10, layer_decay=0.75))
+        state = TrainState.create(model, opt)
+        step = make_classification_train_step(model, opt, criterion, 1, lr_fn, mixup_cfg=mixup_cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        rng = np.random.default_rng(2)
+        batch = {"videos": rng.standard_normal(CLIPS, dtype=np.float32), "labels": rng.integers(0, classes, size=B)}
+        attn.reset_launch_counts()
+        history = [step(state, batch, generator=gen, host_metrics=True) for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        counts = attn.launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(CLASS_WINDOW):
+            step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+        ms_by[label] = window_s / CLASS_WINDOW * 1e3
+        tokens = 1568 + use_cls
+        emit({"phase": "class_train", "card": card, "config": label, "classes": classes, "cls_token": use_cls,
+              "tokens": tokens, "mixup": dataclasses.asdict(mixup_cfg), "steps": TRAIN_STEPS, "clips_per_step": B,
+              "metrics": history, "launches": counts, "window_steps": CLASS_WINDOW, "ms_per_step": ms_by[label],
+              "clips_per_s": CLASS_WINDOW * B / window_s,
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+        want = {name: 12 * TRAIN_STEPS if name in ("K1-fwd-stats", "K1-bwd") else 0 for name in counts}
+        finite = all(np.isfinite(v) for m in history for v in m.values())
+        if counts != want or not finite or set(history[0]) != {"loss", "class_acc", "grad_norm", "lr"}:
+            fail(f"class_train {label}: launches {counts} (want {want}), finite={finite}, metrics {sorted(history[0])}")
+        total_counts = counts if total_counts is None else {k: total_counts[k] + counts[k] for k in counts}
+        sd = {k: v.clone() for k, v in model.state_dict().items()}
+        del model, opt, state, step
+        torch.cuda.empty_cache()
+
+        small = {"videos": torch.from_numpy(rng.standard_normal((2,) + CLIPS[1:], dtype=np.float32)).to(dev),
+                 "labels": torch.tensor([1, classes - 1], device=dev)}
+        draws = {"mix": torch.tensor([True]), "switch": torch.tensor([True]), "lam_mix": torch.tensor([0.7]),
+                 "lam_cut": torch.tensor([0.6]), "cy": torch.tensor([100]), "cx": torch.tensor([120])}
+
+        def build(fused):
+            m = cls_cli.build_class_model(args, dev) if fused else _plain(cls_cli.build_class_model(args, dev))
+            m.load_state_dict(sd)
+            return m
+
+        (loss_f, grads_f), (loss_p, grads_p) = _fused_vs_plain(
+            build, lambda m, g: classification_loss(m, small["videos"], small["labels"], soft_target_cross_entropy,
+                                                    mixup_cfg=mixup_cfg, generator=g, draws=draws)[0], CLASS_WATCH)
+        row = {"phase": "class_vs_plain", "card": card, "config": label, "clips": 2}
+        ok = _held(row, loss_f, loss_p, grads_f, grads_p)
+        emit(row)
+        if not ok:
+            fail(f"fused and plain classification steps ({label}) disagree beyond their limits")
+    return total_counts, ms_by
+
+
+# the class_cli phase: the scene-model recipe (--use_cls, 365 classes,
+# labels from a CLS teacher) with SGD; 24 training samples (2 steps of 12
+# drawn twice), 12 validation and 12 test clips (24 test views)
+CLASS_CLI_TRAIN, CLASS_CLI_VAL, CLASS_CLI_TEST = 24, 12, 12
+CLASS_CLI_FLAGS = ["--use_cls", "--nb_classes", "365", "--opt", "sgd", "--lr", "0.01", "--batch_size", str(B),
+                   "--synthetic_data", "--data_set", "Kinetics-400", "--test_num_segment", "1", "--test_num_crop", "2"]
+
+
+def phase_class_cli(attn, card):
+    """`devias_tpu_torch.cli.run_class_finetuning` in-process at full width
+    on synthetic clips: one 2-step epoch with `--opt sgd`, mixup on (the
+    parser's default) and `--scene_labels_from` a CLS teacher checkpoint
+    this phase writes from the port's seeded teacher, validation, the
+    final test and merge; then `--eval` on the trained checkpoint, which
+    must give the same top-1. K1 counts: per step 12 K1-fwd stats and 12
+    K1-bwd in the student and 12 K1-fwd in the teacher, 12 K1-fwd per
+    validation and test batch."""
+    from devias_tpu_torch.cli import run_class_finetuning as cls_cli
+    from devias_tpu_torch.nn import create_model
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, n in (("train.csv", CLASS_CLI_TRAIN), ("val.csv", CLASS_CLI_VAL), ("test.csv", CLASS_CLI_TEST)):
+            with open(os.path.join(tmp, name), "w") as f:
+                f.write("\n".join(f"{name[0]}{i:03d}.mp4 {i % NUM_SCENE_CLASSES}" for i in range(n)))
+        teacher_pth = os.path.join(tmp, "teacher.pth")
+        teacher = create_model("vit_base_patch16_224", seed=5, **TEACHER_KW)
+        torch.save({"model": {k: v.cpu() for k, v in teacher.state_dict().items()}}, teacher_pth)
+        del teacher
+        out = os.path.join(tmp, "out")
+        base = CLASS_CLI_FLAGS + ["--data_path", tmp]
+        result, train_counts, train_s = _cli_run(attn, cls_cli, base + [
+            "--epochs", "1", "--output_dir", out, "--scene_labels_from", teacher_pth])
+        with open(os.path.join(out, "log.txt")) as f:
+            records = [json.loads(line) for line in f if line.strip()]
+        ckpt = os.path.join(out, "ckpt", "checkpoint-0.pth")
+        if not os.path.exists(ckpt):
+            fail("the class CLI left no checkpoint")
+        opt_state = torch.load(ckpt, map_location="cpu", weights_only=True)["optimizer"]["state"]
+        again, eval_counts, eval_s = _cli_run(attn, cls_cli, base + [
+            "--eval", "--finetune", ckpt, "--output_dir", os.path.join(tmp, "eval")])
+    epoch = result["epochs"][0]
+    steps = epoch["n_steps"]
+    row = {"phase": "class_cli", "card": card, "train_s": train_s, "n_steps": steps,
+           "loop_ms_per_step": epoch["loop_s"] * 1e3 / steps, "clips_per_step": 2 * B, "records": records,
+           "final_top1": result.get("final_top1"), "train_launches": train_counts, "eval_s": eval_s,
+           "eval": again.get("eval"), "eval_launches": eval_counts,
+           "optimizer_buffers": sorted(next(iter(opt_state.values())))}
+    emit(row)
+    numbers = [v for r in records for k, v in r.items() if k.startswith(("train_", "val_", "final_"))]
+    if steps != CLASS_CLI_TRAIN // B or not numbers or not all(np.isfinite(v) for v in numbers) \
+            or row["optimizer_buffers"] != ["momentum_buffer"] or again.get("eval") is None \
+            or again["eval"]["top1"] != result.get("final_top1"):
+        fail(f"class CLI results incomplete, not finite or inconsistent: {row}")
+    val_b, test_b = -(-CLASS_CLI_VAL // B), -(-CLASS_CLI_TEST * 2 // B)
+    for label, got, want in (
+            ("train", train_counts, {"K1-fwd": 12 * (steps + val_b + test_b), "K1-fwd-stats": 12 * steps,
+                                     "K1-bwd": 12 * steps}),
+            ("eval", eval_counts, {"K1-fwd": 12 * test_b})):
+        got = {k: v for k, v in got.items() if v}
+        if got != want:
+            fail(f"class CLI {label} launched {got}; want {want}")
+    return {name: train_counts[name] + eval_counts[name] for name in train_counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -1647,10 +2038,14 @@ def main() -> int:
     phase_cli_host_rate(card, train_ms)
     dp_launches = phase_dp_train(attn, card)
     hat_launches = phase_hat(attn, card)
+    hvu_launches, _ = phase_hvu_train(attn, card)
+    hvu_cli_launches = phase_hvu_cli(attn, card)
+    class_launches, _ = phase_class_train(attn, card)
+    class_cli_launches = phase_class_cli(attn, card)
 
     def launches(name):
-        return (train_launches[name] + sp_launches[name] + cli_launches[name] + dp_launches[name]
-                + hat_launches[name])
+        return sum(c[name] for c in (train_launches, sp_launches, cli_launches, dp_launches, hat_launches,
+                                     hvu_launches, hvu_cli_launches, class_launches, class_cli_launches))
 
     # K2 in the kernels line at the shape the one-card SP step gives it; the
     # four-shard shape beside it
@@ -1675,7 +2070,7 @@ def main() -> int:
          "devias_tpu/kernels/attention.py:192", launches("K3-bwd"), hm_err["K3-bwd"], hm_timing["K3-bwd"]),
         ("K4 fused_slot_attention", "slot_attention.cu", "devias_tpu/kernels/slot_attention.py:101",
          sa.fused_slot_attention.launches, sa_err, sa_timing),
-        ("K5 patchify_embed", "patch_embed.cu", "scripts/retest_patchify_pallas.py:34",
+        ("K5 patchify_embed", "patch_embed.cu", "scripts/retest_patchify_pallas.py:35",
          pe.patchify_embed.launches, pe_err, pe_timing),
     )
     emit({"kernels": [{

@@ -223,19 +223,13 @@ def fame_draws(batch: int, cfg: FAMEConfig, generator: torch.Generator,
     return {"perm": perm, "keep": keep}
 
 
-def fame_augment(videos: torch.Tensor, labels: torch.Tensor, cfg: FAMEConfig = FAMEConfig(),
-                 generator: Optional[torch.Generator] = None, draws: Optional[Dict[str, torch.Tensor]] = None,
-                 mean: Sequence[float] = IMAGENET_MEAN, std: Sequence[float] = IMAGENET_STD):
-    """FAME on a normalised batch [B, T, H, W, C]. Returns (videos, labels,
-    (fg_mask [B, (H/p)(W/p)], fg_masks_per_frames [B, T/2 (H/p)(W/p)])).
-
-    `draws` = {"perm": LongTensor[B], "keep": BoolTensor[B]} fixes the donor
-    permutation and the samples that take the mixed clip; without it both
-    are drawn from `generator`. Labels pass through: the foreground keeps
-    its action."""
+def _fame_core(videos: torch.Tensor, cfg: FAMEConfig, generator: Optional[torch.Generator],
+               draws: Optional[Dict[str, torch.Tensor]], mean: Sequence[float], std: Sequence[float]):
+    """Masks and mix of one FAME call: (mixed videos, fg_mask, fg_pf, perm,
+    keep), with `draws` or draws from `generator`."""
     if draws is None:
         if generator is None:
-            raise ValueError("fame_augment needs a torch.Generator or explicit draws")
+            raise ValueError("FAME needs a torch.Generator or explicit draws")
         draws = fame_draws(videos.shape[0], cfg, generator, videos.device)
     dev = videos.device
     mean_t = torch.tensor(mean, dtype=torch.float32, device=dev)
@@ -252,4 +246,33 @@ def fame_augment(videos: torch.Tensor, labels: torch.Tensor, cfg: FAMEConfig = F
     B = videos.shape[0]
     fg_mask = _pool_to_patches(mask, cfg.patch_size).reshape(B, -1)
     fg_pf = _pool_to_patches(per_pair, cfg.patch_size).reshape(B, -1)
+    return videos_out, fg_mask, fg_pf, perm, keep
+
+
+def fame_augment(videos: torch.Tensor, labels: torch.Tensor, cfg: FAMEConfig = FAMEConfig(),
+                 generator: Optional[torch.Generator] = None, draws: Optional[Dict[str, torch.Tensor]] = None,
+                 mean: Sequence[float] = IMAGENET_MEAN, std: Sequence[float] = IMAGENET_STD):
+    """FAME on a normalised batch [B, T, H, W, C]. Returns (videos, labels,
+    (fg_mask [B, (H/p)(W/p)], fg_masks_per_frames [B, T/2 (H/p)(W/p)])).
+
+    `draws` = {"perm": LongTensor[B], "keep": BoolTensor[B]} fixes the donor
+    permutation and the samples that take the mixed clip; without it both
+    are drawn from `generator`. Labels pass through: the foreground keeps
+    its action."""
+    videos_out, fg_mask, fg_pf, _, _ = _fame_core(videos, cfg, generator, draws, mean, std)
     return videos_out, labels, (fg_mask, fg_pf)
+
+
+def fame_augment_hvu(videos: torch.Tensor, action_labels: torch.Tensor, scene_labels: torch.Tensor,
+                     cfg: FAMEConfig = FAMEConfig(), generator: Optional[torch.Generator] = None,
+                     draws: Optional[Dict[str, torch.Tensor]] = None, mean: Sequence[float] = IMAGENET_MEAN,
+                     std: Sequence[float] = IMAGENET_STD):
+    """FAME-HVU: FAME as `fame_augment`, and a mixed sample takes its
+    background donor's scene label, `scene_labels[perm]` where `keep`
+    holds. Reference quirk kept: with `prob_aug >= 1` every sample is
+    mixed but the scene labels pass through unswapped. Returns (videos,
+    action_labels, scene_labels, (fg_mask, fg_masks_per_frames))."""
+    videos_out, fg_mask, fg_pf, perm, keep = _fame_core(videos, cfg, generator, draws, mean, std)
+    if cfg.prob_aug < 1:
+        scene_labels = torch.where(keep, scene_labels[perm], scene_labels)
+    return videos_out, action_labels, scene_labels, (fg_mask, fg_pf)

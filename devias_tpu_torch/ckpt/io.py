@@ -5,7 +5,7 @@ ref: utils/utils.py:442-517 — epoch-numbered checkpoints and
 auto_load_model scanning for the newest saved epoch. One file per saved
 epoch, `{dir}/checkpoint-{epoch}.pth`, in the reference's container layout:
 {"model": state dict with the reference keys, "model_ema": the EMA's
-tensors or None, "optimizer": FusedAdamW's state dict (moments and update
+tensors or None, "optimizer": the optimizer's state dict (its buffers and update
 count), "epoch": e, "step": the train state's step, "rng": the step
 generator's state or None}. Its "model" entry loads through
 `ckpt/torch_import.py` like any reference checkpoint, so a trained port

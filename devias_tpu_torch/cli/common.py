@@ -1,7 +1,9 @@
 """Shared CLI plumbing (port of `devias_tpu/cli/common.py`): the
 reference's flag surface, names and defaults kept so published commands
 run unchanged (ref run_slot_finetuning.py:37-247), the one epoch loop, and
-the helpers the entry points share.
+the helpers the entry points share: `run_slot_finetuning`,
+`run_slot_finetuning_hvu`, `eval_slot_finetuning_hvu` and
+`run_class_finetuning`.
 
 Differences from the JAX parser: `--device` defaults to `cuda` (the JAX
 one to `tpu`), and `--profile_dir` captures a `torch.profiler` trace.
@@ -23,9 +25,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from devias_tpu_torch.ckpt import load_reference_checkpoint, save_checkpoint
+from devias_tpu_torch.ckpt import auto_resume, load_reference_checkpoint, save_checkpoint
 from devias_tpu_torch.data import DataConfig, DataLoader, device_prefetch
+from devias_tpu_torch.kernels.attention import HEAD_DIM
 from devias_tpu_torch.train import OptimConfig
+from devias_tpu_torch.train.step import to_device
 from devias_tpu_torch.utils import MetricLogger, TensorLogger
 
 PRINT_FREQ = 50  # steps between the loop's synchronising metric reads
@@ -182,6 +186,60 @@ def tiny_overrides(args) -> dict:
     return {"depth": 2, "embed_dim": 64, "num_heads": 4}
 
 
+# width and heads of the registry models unless --smoke_tiny overrides them
+_WIDTH = {"embed_dim": 768, "num_heads": 12}
+
+
+def use_attention_kernel(device: torch.device, embed_dim: int, num_heads: int) -> bool:
+    """Whether a model of this width runs K1 (`fused_attention`): on `cuda`
+    at the head dim the kernel takes (HEAD_DIM), and nowhere else. The
+    kernel's wrapper refuses any other head dim on the card, so the choice
+    is made here, once, as the reference CLI leaves `fused_attention` at
+    its default."""
+    return device.type == "cuda" and embed_dim // num_heads == HEAD_DIM
+
+
+def attention_kernel_for(args, device: torch.device) -> bool:
+    """`use_attention_kernel` at the width of the CLI's models (the
+    registry's, or --smoke_tiny's); logs once on `cuda` when it declines."""
+    tiny = tiny_overrides(args)
+    width = {**_WIDTH, **{k: v for k, v in tiny.items() if k in _WIDTH}}
+    fused = use_attention_kernel(device, **width)
+    if device.type == "cuda" and not fused:
+        print(f"K1 off: head dim {width['embed_dim'] // width['num_heads']}")
+    return fused
+
+
+def eval_fn(model, device: torch.device, select):
+    """A deterministic forward of `model` in eval mode: select(outputs)."""
+
+    def fn(videos):
+        model.eval()
+        with torch.inference_mode():
+            return select(model(to_device(videos, device)))
+
+    return fn
+
+
+def resume(args, state, generator: torch.Generator) -> int:
+    """The epoch to start from: after the checkpoint of --resume (an
+    explicit checkpoint dir, which must hold one), else, with
+    --auto_resume, after the newest one under --output_dir/ckpt, else
+    --start_epoch. Restores `state` and `generator` in place."""
+    if args.resume:
+        restored, epoch = auto_resume(args.resume, state, generator)
+        if restored is None:
+            raise FileNotFoundError(f"--resume {args.resume}: no checkpoint found")
+        print(f"resumed from {args.resume} epoch {epoch}")
+        return epoch + 1
+    if args.auto_resume and args.output_dir:
+        restored, epoch = auto_resume(os.path.join(args.output_dir, "ckpt"), state, generator)
+        if restored is not None:
+            print(f"auto-resumed from epoch {epoch}")
+            return epoch + 1
+    return args.start_epoch
+
+
 def world() -> tuple:
     """(rank, world size) of the initialised process group, or (0, 1)."""
     if dist.is_available() and dist.is_initialized():
@@ -212,6 +270,7 @@ def run_train_loop(
     start_epoch: int = 0,
     on_epoch_end=None,
     rank: int = 0,
+    batch_keys=("videos", "labels"),
 ):
     """The one shared epoch loop (ref engine train_one_epoch + the
     per-script loop at run_slot_finetuning.py:648-713): batches copied to
@@ -220,6 +279,8 @@ def run_train_loop(
     read once per PRINT_FREQ steps and once per epoch, JSONL and scalar
     logging, validation with best-checkpoint tracking, periodic checkpoints
     (with the generator's state), and an optional `torch.profiler` capture.
+    `batch_keys` are the batch entries the step takes (the HVU step adds
+    "scene_labels").
 
     validate(state) -> metric dict (runs before checkpoint decisions).
     on_epoch_end(state, epoch, record) -> optional extra record entries.
@@ -240,7 +301,7 @@ def run_train_loop(
         t_loop = time.perf_counter()
         last_print = t0
         batches = (
-            {k: batch[k] for k in ("videos", "labels")}
+            {k: batch[k] for k in batch_keys}
             for batch in itertools.islice(iter(loader_train), steps_per_epoch)
         )
         it = -1
@@ -374,6 +435,7 @@ def make_optim_config(args, total_steps: int, steps_per_epoch: int,
         warmup_steps=warmup,
         clip_grad=args.clip_grad,
         opt=args.opt,
+        momentum=args.momentum,
     )
 
 

@@ -32,10 +32,12 @@ import numpy as np
 import torch
 
 from devias_tpu_torch.aug.fame import FAMEConfig
-from devias_tpu_torch.ckpt import auto_resume, load_reference_checkpoint, save_checkpoint
+from devias_tpu_torch.ckpt import load_reference_checkpoint, save_checkpoint
 from devias_tpu_torch.cli.common import (
     JsonlLogger,
+    attention_kernel_for,
     build_shared_parser,
+    eval_fn,
     finetune_surgery,
     global_batch,
     make_data_config,
@@ -45,20 +47,20 @@ from devias_tpu_torch.cli.common import (
     make_scuba_loader,
     make_train_loader,
     reject_unported,
+    resume,
     run_knn_protocol,
     run_train_loop,
     tiny_overrides,
+    use_attention_kernel,
     world,
 )
 from devias_tpu_torch.core.dist import make_mesh, make_sp_mesh, maybe_init_distributed
 from devias_tpu_torch.data import build_dataset
 from devias_tpu_torch.device import resolve_device
 from devias_tpu_torch.eval import final_test, hat_eval, merge_results, run_scuba, validation_one_epoch
-from devias_tpu_torch.kernels.attention import HEAD_DIM
 from devias_tpu_torch.losses import SlotLossConfig
 from devias_tpu_torch.nn import create_model
 from devias_tpu_torch.train import TrainState, TrainStepConfig, make_optimizer, make_slot_train_step
-from devias_tpu_torch.train.step import to_device
 
 
 def get_args(argv=None):
@@ -97,19 +99,6 @@ def get_args(argv=None):
     return parser.parse_args(argv)
 
 
-# width and heads of both registry models unless --smoke_tiny overrides them
-_WIDTH = {"embed_dim": 768, "num_heads": 12}
-
-
-def use_attention_kernel(device: torch.device, embed_dim: int, num_heads: int) -> bool:
-    """Whether a model of this width runs K1 (`fused_attention`): on `cuda`
-    at the head dim the kernel takes (HEAD_DIM), and nowhere else. The
-    kernel's wrapper refuses any other head dim on the card, so the choice
-    is made here, once, as the reference CLI leaves `fused_attention` at
-    its default."""
-    return device.type == "cuda" and embed_dim // num_heads == HEAD_DIM
-
-
 def build_models(args, device: torch.device, dtype: torch.dtype = torch.bfloat16):
     """The student (`--model`) and the frozen CLS scene teacher
     (`vit_base_patch16_224`, ref run_slot_finetuning.py:392-406), with
@@ -117,10 +106,7 @@ def build_models(args, device: torch.device, dtype: torch.dtype = torch.bfloat16
     on `device`; K1 where `use_attention_kernel` allows it, its plain
     version elsewhere (logged once)."""
     tiny = tiny_overrides(args)
-    width = {**_WIDTH, **{k: v for k, v in tiny.items() if k in _WIDTH}}
-    fused = use_attention_kernel(device, **width)
-    if device.type == "cuda" and not fused:
-        print(f"K1 off: head dim {width['embed_dim'] // width['num_heads']}")
+    fused = attention_kernel_for(args, device)
     model = create_model(
         args.model, device=device, seed=args.seed, **tiny,
         num_classes=args.nb_classes, num_scene_classes=365, tubelet_size=args.tubelet_size,
@@ -148,17 +134,6 @@ def init_params(args, model, teacher) -> None:
         print(f"scene teacher load: {len(rep['loaded'])} tensors")
 
 
-def _eval_fn(model, device: torch.device, select):
-    """A deterministic forward of `model` in eval mode: select(outputs)."""
-
-    def fn(videos):
-        model.eval()
-        with torch.inference_mode():
-            return select(model(to_device(videos, device)))
-
-    return fn
-
-
 def _final_test(loader, *args, **kw):
     """`final_test` on a loader made for it, closed after."""
     try:
@@ -184,9 +159,9 @@ def main(args=None) -> dict:
     model, teacher = build_models(args, dev)
     init_params(args, model, teacher)
 
-    action_logits_fn = _eval_fn(model, dev, lambda o: o["action_logit"])
-    scene_logits_fn = _eval_fn(model, dev, lambda o: o["scene_logit"][:, args.nb_classes:])
-    teacher_logits_fn = _eval_fn(teacher, dev, lambda o: o["logits"])
+    action_logits_fn = eval_fn(model, dev, lambda o: o["action_logit"])
+    scene_logits_fn = eval_fn(model, dev, lambda o: o["scene_logit"][:, args.nb_classes:])
+    teacher_logits_fn = eval_fn(teacher, dev, lambda o: o["logits"])
 
     if args.eval or args.eval_scene or args.hat_eval or args.run_scuba or args.run_knn:
         return run_evaluations(args, model, dev, action_logits_fn, scene_logits_fn, teacher_logits_fn, rank, size)
@@ -214,19 +189,7 @@ def main(args=None) -> dict:
     layout = sp_mesh is not None or dp_mesh is not None
     generator = torch.Generator(device="cpu" if layout else dev).manual_seed(args.seed)
 
-    start_epoch = args.start_epoch
-    if args.resume:
-        # explicit checkpoint dir (ref --resume, run_slot_finetuning.py:198)
-        restored, epoch = auto_resume(args.resume, state, generator)
-        if restored is None:
-            raise FileNotFoundError(f"--resume {args.resume}: no checkpoint found")
-        start_epoch = epoch + 1
-        print(f"resumed from {args.resume} epoch {epoch}")
-    elif args.auto_resume and args.output_dir:
-        restored, epoch = auto_resume(os.path.join(args.output_dir, "ckpt"), state, generator)
-        if restored is not None:
-            start_epoch = epoch + 1
-            print(f"auto-resumed from epoch {epoch}")
+    start_epoch = resume(args, state, generator)
 
     loss_cfg = SlotLossConfig(
         num_action_classes=args.nb_classes,
@@ -342,7 +305,7 @@ def run_evaluations(args, model, device: torch.device, action_logits_fn, scene_l
         results["scuba"] = res
 
     if args.run_knn:
-        feature_fn = _eval_fn(model, device, lambda o: (o["action_feat"], o["scene_feat"]))
+        feature_fn = eval_fn(model, device, lambda o: (o["action_feat"], o["scene_feat"]))
         res = run_knn_protocol(args, feature_fn, teacher_logits_fn, rank)
         print("kNN:", res)
         results["knn"] = res

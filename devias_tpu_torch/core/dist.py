@@ -24,6 +24,14 @@ after the micro-batch loop every gradient is averaged over the data group
 XLA inserts in the JAX step. A layout of D data rows and S seq ranks
 (`make_sp_mesh(S)` over D x S processes, or `make_mesh()` for S = 1)
 combines both.
+
+Two batch ops of the JAX package mix clips across the whole (global)
+micro-batch, and under jit on the data mesh XLA moves the donors across
+shards: FAME-HVU's donor permutation and mixup's flipped-batch partner.
+Here each rank holds only its own rows, so `over_data_group` gathers the
+data group's rows, applies the op to the global micro-batch with draws
+from a stream every rank holds alike (`mix_generators`), and keeps this
+rank's rows. The slot step's FAME stays shard-local, as in JAX.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -211,6 +219,40 @@ def rank_generators(generator: torch.Generator, mesh: SPMesh, device) -> tuple:
     `sp_generators`; without SP the model takes the heads' generator."""
     return tuple(torch.Generator(device=d).manual_seed(_fold(s, mesh.data_rank))
                  for d, s in zip((device, "cpu", device), _draw_seeds(generator, 3)))
+
+
+def mix_generators(generator: torch.Generator, mesh: SPMesh, device) -> tuple:
+    """(batch op, model) generators of this rank, from two draws of
+    `generator`, which every rank holds in one state. The batch op's
+    stream is not folded: `over_data_group` applies the op to the global
+    micro-batch on every rank, and every rank must draw the same
+    permutation, lam and boxes. The model's (dropout, drop-path) is folded
+    with the data rank, so each row drops its own samples."""
+    op_seed, model_seed = _draw_seeds(generator, 2)
+    return (torch.Generator(device=device).manual_seed(op_seed),
+            torch.Generator(device=device).manual_seed(_fold(model_seed, mesh.data_rank)))
+
+
+def over_data_group(fn: Callable[..., Sequence[torch.Tensor]], tensors: Sequence[torch.Tensor],
+                    mesh: Optional[SPMesh]) -> tuple:
+    """Apply a batch op that mixes clips across the global micro-batch.
+    `tensors` are this rank's rows (equal counts on every rank); each is
+    gathered over the data group in data-rank order (one all-gather per
+    tensor), `fn(*gathered)` returns tensors whose first axis is the global
+    batch, and this rank's rows of each are returned. Every rank computes
+    the whole op, with draws it must take alike (`mix_generators`). With no
+    layout or one data row, `fn(*tensors)`. Not differentiable: it runs on
+    the inputs, before the model."""
+    if mesh is None or mesh.data_size == 1:
+        return tuple(fn(*tensors))
+    b = tensors[0].shape[0]
+    gathered = []
+    for t in tensors:
+        parts = [torch.empty_like(t) for _ in range(mesh.data_size)]
+        dist.all_gather(parts, t.contiguous(), group=mesh.data_group)
+        gathered.append(torch.cat(parts))
+    lo = mesh.data_rank * b
+    return tuple(o[lo:lo + b] for o in fn(*gathered))
 
 
 def sp_generators(generator: torch.Generator, mesh: SPMesh, device) -> tuple:

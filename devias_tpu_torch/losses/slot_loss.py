@@ -1,5 +1,6 @@
-"""DEVIAS slot loss and its criteria (port of
-`devias_tpu/losses/slot_loss.py`: `devias_slot_loss` and its helpers).
+"""DEVIAS slot losses and their criteria (port of
+`devias_tpu/losses/slot_loss.py`: `devias_slot_loss`, `hvu_slot_loss`,
+the classification criteria and their helpers).
 
 Everything is computed in float32 with the reference's quirks kept, each
 noted where it is applied.
@@ -20,6 +21,22 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per-sample cross-entropy with integer labels, no reduction."""
     logp = logits.float().log_softmax(dim=-1)
     return -logp.gather(-1, labels[..., None].long())[..., 0]
+
+
+def soft_target_cross_entropy(logits: torch.Tensor, target_probs: torch.Tensor) -> torch.Tensor:
+    """Per-sample sum(-target * log_softmax(logits)) (timm's
+    SoftTargetCrossEntropy, no reduction)."""
+    return -(target_probs.float() * logits.float().log_softmax(dim=-1)).sum(dim=-1)
+
+
+def label_smoothing_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                  smoothing: float = 0.1) -> torch.Tensor:
+    """Per-sample (1 - smoothing) NLL + smoothing x the mean of -log p over
+    the classes (timm's LabelSmoothingCrossEntropy, no reduction)."""
+    logp = logits.float().log_softmax(dim=-1)
+    nll = -logp.gather(-1, labels[..., None].long())[..., 0]
+    smooth = -logp.mean(dim=-1)
+    return (1.0 - smoothing) * nll + smoothing * smooth
 
 
 def kl_div_log_target(student_logp: torch.Tensor, teacher_logp: torch.Tensor) -> torch.Tensor:
@@ -149,6 +166,56 @@ def devias_slot_loss(student: Dict[str, torch.Tensor], teacher_scene_logit: torc
     else:
         raise ValueError(f"unknown scene_criterion {cfg.scene_criterion!r}")
 
+    cosine_loss = cosine_orthogonality_loss(slots)
+    total = action_loss + scene_loss + cosine_loss + mask_prediction_loss + mask_distill_loss
+    return total, action_slot_logits, {
+        "action_loss": action_loss,
+        "scene_loss": scene_loss,
+        "cosine_loss": cosine_loss,
+        "mask_prediction_loss": mask_prediction_loss,
+        "mask_distill_loss": mask_distill_loss,
+    }
+
+
+def hvu_slot_loss(student: Dict[str, torch.Tensor], action_targets: torch.Tensor, scene_targets: torch.Tensor,
+                  fg_mask: torch.Tensor, fg_masks_per_frames: torch.Tensor, cfg: SlotLossConfig,
+                  ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """The HVU slot loss: real scene labels, no teacher. Returns (total
+    loss, action logits [B, C], the five loss terms).
+
+    The scene class is `scene_targets + num_action_classes` in the unified
+    head; slots are matched to {action, scene} as in `devias_slot_loss`,
+    the action slot takes the cross-entropy and the two mask losses, the
+    scene slot the cross-entropy to its label, all slots the cosine term.
+    The reference's 'KL' criterion (kl_div of the log-softmax against a
+    one-hot target, batchmean over a [1, C] input) reduces exactly to that
+    cross-entropy, so `scene_criterion` and `scene_loss_weight` play no
+    part. The mask terms take `cfg`'s weights (the reference loss's own
+    defaults are 1.0; the HVU CLI passes its flags)."""
+    slots_head = student["slots_head"].float()
+    slots = student["slots"].float()
+    mask_predictions = student["mask_predictions"].float()
+    attn = _head_mean_attn(student["attn"])
+    B, S, _ = slots_head.shape
+    action_targets = action_targets.long()
+    scene_target = scene_targets.long() + cfg.num_action_classes
+
+    probs = slots_head.softmax(dim=-1)
+    cost_action = -probs.gather(-1, action_targets.view(B, 1, 1).expand(B, S, 1))[..., 0]
+    cost_scene = -probs.gather(-1, scene_target.view(B, 1, 1).expand(B, S, 1))[..., 0]
+    a_idx, s_idx = match_action_scene_slots(cost_action, cost_scene)
+
+    action_slot_logits = _take(slots_head, a_idx)
+    scene_slot_logits = _take(slots_head, s_idx)
+    action_attn = _take(attn, a_idx)
+    action_mask_pred = _take(mask_predictions, a_idx)
+
+    action_loss = cross_entropy(action_slot_logits, action_targets).sum() / B
+    scene_loss = cross_entropy(scene_slot_logits, scene_target).sum() / B
+    mask_distill_loss = (((action_attn - fg_masks_per_frames.float()) ** 2).mean(dim=-1).sum() / B
+                         * cfg.mask_distill_loss_weight)
+    mask_prediction_loss = (bce_with_logits(action_mask_pred, fg_mask).sum() / B
+                            * cfg.mask_prediction_loss_weight)
     cosine_loss = cosine_orthogonality_loss(slots)
     total = action_loss + scene_loss + cosine_loss + mask_prediction_loss + mask_distill_loss
     return total, action_slot_logits, {

@@ -1,5 +1,6 @@
-"""Steps of the port (`devias_tpu/train/step.py`): the eval step and the
-DEVIAS slot train step.
+"""Steps of the port (`devias_tpu/train/step.py`): the eval step, the
+DEVIAS slot train step, the HVU slot train step and the plain
+classification train step.
 
 The slot train step, per micro-batch of `update_freq`: the optional uint8
 or I420 unpack, FAME (mixed clips and patch-grid foreground masks; run
@@ -17,9 +18,17 @@ before the optimizer step. Sequence parallelism (`sp_mesh`,
 teacher on the full clips, the student's backbone on this rank's frames
 (`core/dist.py::seq_parallel_tokens`) and the agg, heads and loss on the
 gathered tokens, and sums the backbone's gradients over the group; with
-more than one data row it also averages over the data group. HVU,
-classification and multi-task steps, the segformer mix and the
-pipeline-parallel variant are not ported yet.
+more than one data row it also averages over the data group.
+
+The HVU step (`make_hvu_train_step`) trains on real scene labels with no
+teacher: FAME-HVU, `hvu_slot_loss`. The classification step
+(`make_classification_train_step`) runs optional mixup / CutMix, the
+model and a criterion on hard or soft targets. Both take `dp_mesh`; their
+batch ops mix across the global micro-batch, as under jit on the JAX data
+mesh (`core/dist.py::over_data_group`). All three steps share the
+accumulation, the reductions and the optimizer step (`_run_step`). The
+multi-task step, the segformer mix and the pipeline-parallel variant are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -31,23 +40,27 @@ import numpy as np
 import torch
 from torch import nn
 
-from devias_tpu_torch.aug.fame import IMAGENET_MEAN, IMAGENET_STD, FAMEConfig, fame_augment
+from devias_tpu_torch.aug.fame import IMAGENET_MEAN, IMAGENET_STD, FAMEConfig, fame_augment, fame_augment_hvu
+from devias_tpu_torch.aug.mixup import MixupConfig, mixup_cutmix
 from devias_tpu_torch.core.dist import (
     SPMesh,
     broadcast_from_seq_root,
     mean_over_data,
     min_over_data,
+    mix_generators,
+    over_data_group,
     rank_generators,
     reduce_grads,
     seq_parallel_tokens,
 )
 from devias_tpu_torch.data.yuv import i420_to_rgb
 from devias_tpu_torch.device import DeviceLike, require_on, resolve_device
-from devias_tpu_torch.losses.slot_loss import SlotLossConfig, devias_slot_loss
+from devias_tpu_torch.losses.slot_loss import SlotLossConfig, cross_entropy, devias_slot_loss, hvu_slot_loss
 from devias_tpu_torch.train.state import TrainState
 
 METRIC_NAMES = ("loss", "action_loss", "scene_loss", "cosine_loss", "mask_prediction_loss",
                 "mask_distill_loss", "class_acc")
+CLASSIFICATION_METRIC_NAMES = ("loss", "class_acc")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,50 +228,223 @@ def make_slot_train_step(model: nn.Module, teacher: nn.Module, optimizer: torch.
     mesh = sp_mesh if sp_mesh is not None else dp_mesh
     # a layout's step splits its streams from host draws (`slot_loss`); a
     # card generator would make each such draw wait for the card
-    own_generator = torch.Generator(device="cpu" if mesh is not None else dev).manual_seed(0)
+    own_generator = _layout_generator(mesh, dev)
     U = step_cfg.update_freq
 
     def step(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None,
              draws: Optional[Union[Dict, Sequence]] = None, host_metrics: bool = False):
-        if state.optimizer is not optimizer:
-            raise ValueError("the state holds another optimizer than the step was made with")
-        gen = own_generator if generator is None else generator
         videos = to_device(batch["videos"], dev)
         labels = to_device(batch["labels"], dev).long()
-        if videos.shape[0] % U:
-            raise ValueError(f"batch {videos.shape[0]} is not a multiple of update_freq {U}")
-        if isinstance(draws, dict):
-            draws = [draws]
-        if draws is not None and len(draws) != U:
-            raise ValueError(f"draws holds {len(draws)} micro-batches; update_freq is {U}")
-        mb = videos.shape[0] // U
-        model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        sums = None
-        for u in range(U):
-            sl = slice(u * mb, (u + 1) * mb)
-            total, m = slot_loss(model, teacher, videos[sl], labels[sl], loss_cfg, step_cfg, gen,
-                                 None if draws is None else draws[u], sp_mesh, dp_mesh)
-            total.backward()
-            sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
-        if mesh is not None:
-            reduce_grads(model, mesh)
-            sums = mean_over_data(sums, mesh)
-        if U > 1:
-            for p in model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(U)
-            sums = {k: v / U for k, v in sums.items()}
-        metrics = {k: sums[k] for k in METRIC_NAMES}
-        if lr_fn is not None:
-            metrics["lr"] = torch.tensor(lr_fn(state.step), dtype=torch.float32)
-        metrics["grad_norm"] = state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
-        state.update_ema()
-        state.step += 1
-        if host_metrics:
-            return {k: float(v) for k, v in metrics.items()}
-        return metrics
+
+        def micro(sl, gen, d):
+            return slot_loss(model, teacher, videos[sl], labels[sl], loss_cfg, step_cfg, gen, d, sp_mesh, dp_mesh)
+
+        return _run_step(state, optimizer, model, videos.shape[0], U, micro, own_generator if generator is None
+                         else generator, draws, mesh, METRIC_NAMES, lr_fn, host_metrics)
+
+    return step
+
+
+def _micro_draws(draws, U: int):
+    """`draws` as one entry per micro-batch (or None): a dict stands for
+    the one micro-batch of update_freq 1."""
+    if isinstance(draws, dict):
+        draws = [draws]
+    if draws is not None and len(draws) != U:
+        raise ValueError(f"draws holds {len(draws)} micro-batches; update_freq is {U}")
+    return draws
+
+
+def _run_step(state: TrainState, optimizer: torch.optim.Optimizer, model: nn.Module, batch: int, U: int,
+              micro: Callable, generator: torch.Generator, draws, mesh: Optional[SPMesh],
+              metric_names: Sequence[str], lr_fn: Optional[Callable[[int], float]], host_metrics: bool):
+    """The part every train step shares: `micro(slice, generator, draws)`
+    -> (loss, metrics) for each of the U micro-batches of `batch` clips,
+    its backward, the f32 gradients and metrics summed; under a layout
+    the gradients reduced and the metrics averaged over the data group;
+    both divided by U; then `lr` (with `lr_fn`, at the step before the
+    update), one optimizer step (`grad_norm`, before clipping), the EMA
+    and the step count."""
+    if state.optimizer is not optimizer:
+        raise ValueError("the state holds another optimizer than the step was made with")
+    if batch % U:
+        raise ValueError(f"batch {batch} is not a multiple of update_freq {U}")
+    draws = _micro_draws(draws, U)
+    mb = batch // U
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    sums = None
+    for u in range(U):
+        total, m = micro(slice(u * mb, (u + 1) * mb), generator, None if draws is None else draws[u])
+        total.backward()
+        sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
+    if mesh is not None:
+        reduce_grads(model, mesh)
+        sums = mean_over_data(sums, mesh)
+    if U > 1:
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad.div_(U)
+        sums = {k: v / U for k, v in sums.items()}
+    metrics = {k: sums[k] for k in metric_names}
+    if lr_fn is not None:
+        metrics["lr"] = torch.tensor(lr_fn(state.step), dtype=torch.float32)
+    metrics["grad_norm"] = optimizer.step()
+    optimizer.zero_grad(set_to_none=True)
+    state.update_ema()
+    state.step += 1
+    if host_metrics:
+        return {k: float(v) for k, v in metrics.items()}
+    return metrics
+
+
+def _check_dp_mesh(dp_mesh: Optional[SPMesh]) -> None:
+    if dp_mesh is not None and dp_mesh.seq_size > 1:
+        raise ValueError(f"dp_mesh has {dp_mesh.seq_size} seq ranks; this step has no sequence-parallel form")
+
+
+def _layout_generator(mesh: Optional[SPMesh], dev: torch.device) -> torch.Generator:
+    """The step's own generator (seed 0): on the host under a layout,
+    whose streams are split from host draws; else on `dev`."""
+    return torch.Generator(device="cpu" if mesh is not None else dev).manual_seed(0)
+
+
+def hvu_loss(model: nn.Module, videos: torch.Tensor, action_labels: torch.Tensor, scene_labels: torch.Tensor,
+             loss_cfg: SlotLossConfig, step_cfg: TrainStepConfig, generator: Optional[torch.Generator] = None,
+             draws=None, dp_mesh: Optional[SPMesh] = None):
+    """One micro-batch of the HVU train step up to its loss: FAME-HVU (or
+    zero masks without FAME), the student in its own mode and
+    `hvu_slot_loss`. Returns (total loss, the seven metrics detached).
+
+    With `dp_mesh`, FAME-HVU runs on the data group's global micro-batch
+    (`over_data_group`) with draws from `mix_generators`' shared stream,
+    as the JAX step mixes its global micro-batch under jit, and the
+    student draws from this rank's folded stream; `draws` then hold the
+    global micro-batch's {"perm", "keep"}."""
+    model_gen = mix_gen = generator
+    if dp_mesh is not None:
+        mix_gen, model_gen = mix_generators(generator, dp_mesh, videos.device)
+    B, T, H, W = videos.shape[:4]
+    n_sp = (H // 16) * (W // 16)
+    if step_cfg.use_fame:
+        def op(v, a, s):
+            v, a, s, (fg, pf) = fame_augment_hvu(v, a, s, step_cfg.fame, mix_gen, draws)
+            return v, a, s, fg, pf
+
+        videos, action_labels, scene_labels, fg_mask, fg_pf = over_data_group(
+            op, (videos, action_labels, scene_labels), dp_mesh)
+    else:
+        fg_mask = torch.zeros(B, n_sp, device=videos.device)
+        fg_pf = torch.zeros(B, (T // 2) * n_sp, device=videos.device)
+    student = model(videos, generator=model_gen)
+    total, action_logits, parts = hvu_slot_loss(student, action_labels, scene_labels, fg_mask, fg_pf, loss_cfg)
+    acc = (action_logits.argmax(dim=-1) == action_labels).float().mean()
+    metrics = {k: v.detach() for k, v in parts.items()}
+    return total, {**metrics, "loss": total.detach(), "class_acc": acc}
+
+
+def make_hvu_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss_cfg: SlotLossConfig,
+                        step_cfg: TrainStepConfig = TrainStepConfig(), lr_fn: Optional[Callable[[int], float]] = None,
+                        dp_mesh: Optional[SPMesh] = None, device: DeviceLike = None) -> Callable:
+    """HVU slot train step `step(state, batch, generator=None, draws=None,
+    host_metrics=False) -> metrics` (`devias_tpu/train/step.py:315-389`):
+    real action and scene labels, FAME-HVU, no teacher.
+
+    `batch` is {"videos": [B, T, H, W, C], "labels" (or "action_labels"):
+    [B], "scene_labels": [B]}, copied to `device` (`cuda` unless the
+    caller asks for `cpu`), where the model and the optimizer's parameters
+    must already be; B = update_freq x micro-batch. FAME, dropout and
+    drop-path draw from `generator`, or the step's own (seed 0). `draws`
+    fixes FAME-HVU's {"perm", "keep"}: one dict per micro-batch (a list),
+    or one dict when update_freq is 1. `step_cfg.num_data_shards`,
+    `device_normalize` and `wire_format` play no part, as in the JAX step.
+
+    `dp_mesh` (`core/dist.py::make_mesh`) trains data-parallel: each rank
+    passes its own rows of every micro-batch, FAME-HVU mixes the global
+    micro-batch (`hvu_loss`), and the gradients and metrics are averaged
+    over the data group. Every rank passes a generator in one state.
+    Returns the seven loss and accuracy metrics, `grad_norm` and, with
+    `lr_fn`, `lr`, as `make_slot_train_step` does."""
+    _check_dp_mesh(dp_mesh)
+    dev = resolve_device(device)
+    require_on(model, dev)
+    own_generator = _layout_generator(dp_mesh, dev)
+    U = step_cfg.update_freq
+
+    def step(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None,
+             draws: Optional[Union[Dict, Sequence]] = None, host_metrics: bool = False):
+        videos = to_device(batch["videos"], dev)
+        action = to_device(batch["labels"] if "labels" in batch else batch["action_labels"], dev).long()
+        scene = to_device(batch["scene_labels"], dev).long()
+
+        def micro(sl, gen, d):
+            return hvu_loss(model, videos[sl], action[sl], scene[sl], loss_cfg, step_cfg, gen, d, dp_mesh)
+
+        return _run_step(state, optimizer, model, videos.shape[0], U, micro,
+                         own_generator if generator is None else generator, draws, dp_mesh, METRIC_NAMES, lr_fn,
+                         host_metrics)
+
+    return step
+
+
+def classification_loss(model: nn.Module, videos: torch.Tensor, labels: torch.Tensor, criterion: Callable,
+                        logits_key: str = "logits", mixup_cfg: Optional[MixupConfig] = None,
+                        generator: Optional[torch.Generator] = None, draws=None,
+                        dp_mesh: Optional[SPMesh] = None):
+    """One micro-batch of the classification step up to its loss: mixup /
+    CutMix when `mixup_cfg` is enabled (soft targets; over the data group's
+    global micro-batch under `dp_mesh`, as `hvu_loss` runs FAME-HVU), the
+    model in its own mode, `criterion(logits, targets).mean()` and the
+    accuracy against the hard labels, or the soft targets' argmax. Returns
+    (loss, {"loss", "class_acc"} detached)."""
+    model_gen = mix_gen = generator
+    if dp_mesh is not None:
+        mix_gen, model_gen = mix_generators(generator, dp_mesh, videos.device)
+    if mixup_cfg is not None and mixup_cfg.enabled:
+        videos, labels = over_data_group(lambda v, lb: mixup_cutmix(v, lb, mixup_cfg, mix_gen, draws),
+                                         (videos, labels), dp_mesh)
+    logits = model(videos, generator=model_gen)[logits_key]
+    loss = criterion(logits, labels).mean()
+    hard = labels if labels.dim() == 1 else labels.argmax(dim=-1)
+    acc = (logits.argmax(dim=-1) == hard).float().mean()
+    return loss, {"loss": loss.detach(), "class_acc": acc}
+
+
+def make_classification_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+                                   criterion: Callable = cross_entropy, update_freq: int = 1,
+                                   lr_fn: Optional[Callable[[int], float]] = None, logits_key: str = "logits",
+                                   mixup_cfg: Optional[MixupConfig] = None, dp_mesh: Optional[SPMesh] = None,
+                                   device: DeviceLike = None) -> Callable:
+    """Plain finetune step `step(state, batch, generator=None, draws=None,
+    host_metrics=False) -> metrics` (`devias_tpu/train/step.py:392-456`):
+    [mixup / CutMix ->] the model -> `criterion` on its `logits_key`
+    output, mean over the micro-batch -> the optimizer. With mixup the
+    criterion takes soft targets [B, num_classes] (soft-target
+    cross-entropy in the CLI).
+
+    `batch` is {"videos": [B, T, H, W, C], "labels": [B]}; device, update
+    frequency, generator and `dp_mesh` as in `make_hvu_train_step`.
+    `draws` fixes mixup's draws (`aug/mixup.py`), one dict per micro-batch
+    or one dict when update_freq is 1; under `dp_mesh` they are the global
+    micro-batch's. Returns `loss`, `class_acc`, `grad_norm` and, with
+    `lr_fn`, `lr`."""
+    _check_dp_mesh(dp_mesh)
+    dev = resolve_device(device)
+    require_on(model, dev)
+    own_generator = _layout_generator(dp_mesh, dev)
+
+    def step(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None,
+             draws: Optional[Union[Dict, Sequence]] = None, host_metrics: bool = False):
+        videos = to_device(batch["videos"], dev)
+        labels = to_device(batch["labels"], dev).long()
+
+        def micro(sl, gen, d):
+            return classification_loss(model, videos[sl], labels[sl], criterion, logits_key, mixup_cfg, gen, d,
+                                       dp_mesh)
+
+        return _run_step(state, optimizer, model, videos.shape[0], update_freq, micro,
+                         own_generator if generator is None else generator, draws, dp_mesh,
+                         CLASSIFICATION_METRIC_NAMES, lr_fn, host_metrics)
 
     return step
 

@@ -382,3 +382,65 @@ def test_tiny_cli_trains_and_evaluates_on_the_card(card, tmp_path):
     records = [json.loads(line) for line in (tmp_path / "out" / "log.txt").read_text().splitlines() if line.strip()]
     numbers = [v for r in records for k, v in r.items() if k.startswith(("train_", "val_", "final_"))]
     assert records and numbers and all(np.isfinite(v) for v in numbers)
+
+
+TINY_FLAGS = ["--smoke_tiny", "--synthetic_data", "--batch_size", "4", "--epochs", "1", "--num_frames", "8",
+              "--input_size", "32", "--short_side_size", "32"]
+
+
+def _finite_records(path):
+    import json
+
+    records = [json.loads(line) for line in path.read_text().splitlines() if line.strip()]
+    numbers = [v for r in records for k, v in r.items() if k.startswith(("train_", "val_", "final_"))]
+    return bool(records) and bool(numbers) and all(np.isfinite(v) for v in numbers)
+
+
+def test_tiny_hvu_cli_trains_and_evaluates_on_the_card(card, tmp_path):
+    """`run_slot_finetuning_hvu --smoke_tiny --mask_model FAME` on the card
+    (FAME-HVU, the HVU step, validation), then `eval_slot_finetuning_hvu`
+    on a SEEN/UNSEEN pair with its checkpoint: finite metrics, the four
+    blocks, and no K1 launch (head dim 16 is not the kernel's)."""
+    from devias_tpu_torch.cli import eval_slot_finetuning_hvu as hvu_eval
+    from devias_tpu_torch.cli import run_slot_finetuning_hvu as hvu
+    from devias_tpu_torch.kernels import attention
+
+    for name, n in (("train.csv", 16), ("val.csv", 8), ("seen.csv", 8), ("unseen.csv", 4)):
+        (tmp_path / name).write_text("\n".join(f"{name[0]}{i} {(7 * i) % 739} {(5 * i) % 248}" for i in range(n)))
+    flags = TINY_FLAGS + ["--agg_depth", "2", "--mask_model", "FAME"]
+    attention.reset_launch_counts()
+    result = hvu.main(hvu.get_args(flags + ["--data_path", str(tmp_path), "--output_dir", str(tmp_path / "out")]))
+    blocks = hvu_eval.main(hvu_eval.get_args(flags + [
+        "--anno_path", str(tmp_path / "seen.csv"), str(tmp_path / "unseen.csv"),
+        "--finetune", str(tmp_path / "out" / "ckpt" / "checkpoint-0.pth")]))
+    torch.cuda.synchronize()
+    assert not any(attention.launch_counts().values())
+    assert [e["epoch"] for e in result["epochs"]] == [0] and _finite_records(tmp_path / "out" / "log.txt")
+    assert set(blocks) == {"action_seen", "scene_seen", "action_unseen", "scene_unseen"}
+    assert all(np.isfinite(v) for b in blocks.values() for v in b.values())
+
+
+def test_tiny_class_cli_trains_on_the_card(card, tmp_path):
+    """`run_class_finetuning --smoke_tiny --opt sgd --use_cls` with mixup
+    and `--scene_labels_from` a tiny CLS teacher on the card: one epoch,
+    validation, the final test; finite metrics, SGD's momentum buffers in
+    the checkpoint, no K1 launch."""
+    from devias_tpu_torch.cli import run_class_finetuning as cls_cli
+    from devias_tpu_torch.kernels import attention
+    from devias_tpu_torch.nn import create_model
+
+    for name, n in (("train.csv", 16), ("val.csv", 8), ("test.csv", 8)):
+        (tmp_path / name).write_text("\n".join(f"{name[0]}{i}.mp4 {i % 365}" for i in range(n)))
+    teacher = create_model("vit_base_patch16_224", device="cpu", seed=3, depth=2, embed_dim=64, num_heads=4,
+                           num_classes=365, use_mean_pooling=False)
+    torch.save({"model": teacher.state_dict()}, tmp_path / "teacher.pth")
+    attention.reset_launch_counts()
+    result = cls_cli.main(cls_cli.get_args(TINY_FLAGS + [
+        "--data_set", "UCF101", "--nb_classes", "365", "--use_cls", "--opt", "sgd", "--mixup", "0.8", "--cutmix", "1.0",
+        "--test_num_segment", "1", "--test_num_crop", "1", "--scene_labels_from", str(tmp_path / "teacher.pth"),
+        "--data_path", str(tmp_path), "--output_dir", str(tmp_path / "out")]))
+    torch.cuda.synchronize()
+    assert not any(attention.launch_counts().values())
+    assert np.isfinite(result["final_top1"]) and _finite_records(tmp_path / "out" / "log.txt")
+    state = torch.load(tmp_path / "out" / "ckpt" / "checkpoint-0.pth", weights_only=True)["optimizer"]["state"]
+    assert all(set(v) == {"momentum_buffer"} for v in state.values())

@@ -192,8 +192,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     opt, _ = make_optimizer(model, OptimConfig(), device="cpu")
     TrainState.create(model, opt, device="cpu")
     make_slot_train_step(model, teacher, opt, SlotLossConfig(5, 4), device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_optimizer(model, OptimConfig(opt="sgd"), device="cpu")
+    with pytest.raises(ValueError, match="not supported"):
+        make_optimizer(model, OptimConfig(opt="lamb"), device="cpu")
     with pytest.raises(NotImplementedError):
         make_slot_train_step(model, teacher, opt, SlotLossConfig(5, 4), pp_mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="exclusive"):
