@@ -8,7 +8,10 @@ Conv3d layout [D, C, t, p, p], and a tied agg block's one unique layer is
 written at every round index. `load_jax_params` loads it with
 `strict=True`. `param_name_map` names the flax path of each port
 parameter, so per-parameter rules (lr scales, decay masks) and values can
-be held against the JAX trees.
+be held against the JAX trees. The kinds are the four model families:
+`slot` (SlotViT), `plain` (PlainViT), `multi_task` (MultiTaskViT, whose
+flax `suffix_tokens` is the port's `scene_token`) and `slot_fusion`
+(SlotFusionViT).
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-MODEL_KINDS = ("slot", "plain")
+MODEL_KINDS = ("slot", "plain", "multi_task", "slot_fusion")
 
 
 def _np(x) -> np.ndarray:
@@ -46,6 +49,10 @@ def backbone_from_jax(sd: Dict[str, np.ndarray], bb: Dict[str, Any]) -> None:
     sd["patch_embed.proj.bias"] = _np(bb["patch_embed"]["bias"]).copy()
     if "cls_token" in bb:
         sd["cls_token"] = _np(bb["cls_token"]).copy()
+    if "suffix_tokens" in bb:
+        sd["scene_token"] = _np(bb["suffix_tokens"]).copy()
+    if "pos_embed" in bb:
+        sd["pos_embed"] = _np(bb["pos_embed"]).copy()
     i = 0
     while f"blocks_{i}" in bb:
         blk, b = bb[f"blocks_{i}"], f"blocks.{i}"
@@ -82,29 +89,47 @@ def agg_from_jax(sd: Dict[str, np.ndarray], agg: Dict[str, Any], depth: int,
     _ln(sd, f"{prefix}last_layer.0", agg["last_norm"])
 
 
-def state_dict_from_jax(params: Dict[str, Any], model_kind: str, agg_depth: int = 8) -> Dict[str, np.ndarray]:
-    """Reference-layout state dict of a `slot` (SlotViT) or `plain`
-    (PlainViT) flax param tree; `agg_depth` is the slot model's number of
-    agg rounds."""
+_REQUIRED = {"slot": ("head", "agg_block", "mask_predictor"), "plain": ("head",), "multi_task": ("head",),
+             "slot_fusion": ("fusion_head", "action_norm")}
+
+
+def _check_kind(model_kind: str) -> None:
     if model_kind not in MODEL_KINDS:
         raise ValueError(f"unknown model_kind {model_kind!r}; expected one of {MODEL_KINDS}")
-    want = ("agg_block", "mask_predictor") if model_kind == "slot" else ()
-    missing = [k for k in ("backbone", "head", *want) if k not in params]
+
+
+def state_dict_from_jax(params: Dict[str, Any], model_kind: str, agg_depth: int = 8) -> Dict[str, np.ndarray]:
+    """Reference-layout state dict of a flax param tree of `model_kind`
+    (`MODEL_KINDS`); `agg_depth` is the number of agg rounds of a model
+    with an agg block."""
+    _check_kind(model_kind)
+    missing = [k for k in ("backbone", *_REQUIRED[model_kind]) if k not in params]
     if missing:
         raise ValueError(f"{model_kind} params lack {missing}; have {sorted(params)}")
     sd: Dict[str, np.ndarray] = {}
     backbone_from_jax(sd, params["backbone"])
-    if model_kind == "slot":
+    if "agg_block" in params:
         agg_from_jax(sd, params["agg_block"], agg_depth)
+    if model_kind == "slot":
         for name, idx in (("fc1", 0), ("fc2", 2), ("fc3", 4)):
             _linear(sd, f"mask_predictor.decoder.{idx}", params["mask_predictor"][name])
-    if "fc_norm" in params:
-        _ln(sd, "fc_norm", params["fc_norm"])
-    if "fc1" in params["head"]:  # MLP head
-        _linear(sd, "head.fc1", params["head"]["fc1"])
-        _linear(sd, "head.fc2", params["head"]["fc2"])
-    else:
-        _linear(sd, "head", params["head"])
+    for name in ("fc_norm", "action_norm", "scene_norm"):
+        if name in params:
+            _ln(sd, name, params[name])
+    if "head" in params:
+        if "fc1" in params["head"]:  # MLP head
+            _linear(sd, "head.fc1", params["head"]["fc1"])
+            _linear(sd, "head.fc2", params["head"]["fc2"])
+        else:
+            _linear(sd, "head", params["head"])
+    if "scene_head" in params:
+        _linear(sd, "scene_head", params["scene_head"])
+    fh = params.get("fusion_head")
+    if fh is not None and "classifier" in fh:  # FusionMLPHead
+        for name, sub in fh.items():
+            (_ln if name.endswith("_ln") else _linear)(sd, f"fusion_head.{name}", sub)
+    elif fh is not None:
+        _linear(sd, "fusion_head", fh)
     return sd
 
 
@@ -121,7 +146,7 @@ def load_jax_params(model: nn.Module, params: Dict[str, Any], model_kind: str,
     return model
 
 
-_LN_MODULES = ("norm1", "norm2", "norm", "norm_context", "fc_norm")
+_LN_MODULES = ("norm1", "norm2", "norm", "norm_context", "fc_norm", "action_norm", "scene_norm")
 _AGG_MODULES = {("0", "norm"): ("norm_q",), ("0", "norm_context"): ("norm_context",),
                 ("0", "fn", "to_q"): ("cross_attn", "to_q"), ("0", "fn", "to_k"): ("cross_attn", "to_k"),
                 ("0", "fn", "to_v"): ("cross_attn", "to_v"), ("0", "fn", "to_out", "0"): ("cross_attn", "to_out"),
@@ -137,15 +162,16 @@ def _leaf(module: Tuple[str, ...], leaf: str, norm: bool) -> Tuple[str, ...]:
 
 
 def flax_path(name: str, model_kind: str, agg_weights_tie: bool = True) -> Tuple[str, ...]:
-    """The flax param path of the port parameter `name` of a `slot` or
-    `plain` model."""
-    if model_kind not in MODEL_KINDS:
-        raise ValueError(f"unknown model_kind {model_kind!r}; expected one of {MODEL_KINDS}")
+    """The flax param path of the port parameter `name` of a model of
+    `model_kind`."""
+    _check_kind(model_kind)
     *mod, leaf = name.split(".")
     if mod[:1] == ["patch_embed"]:
         return ("backbone", "patch_embed", "kernel" if leaf == "weight" else leaf)
-    if not mod and leaf == "cls_token":
-        return ("backbone", "cls_token")
+    if not mod and leaf in ("cls_token", "pos_embed"):
+        return ("backbone", leaf)
+    if not mod and leaf == "scene_token":
+        return ("backbone", "suffix_tokens")
     if mod[:1] == ["blocks"]:
         block = ("backbone", f"blocks_{mod[1]}")
         rest = tuple(mod[2:])
@@ -166,10 +192,12 @@ def flax_path(name: str, model_kind: str, agg_weights_tie: bool = True) -> Tuple
         return _leaf(layer + sub, leaf, "norm" in sub[-1])
     if mod[:2] == ["mask_predictor", "decoder"]:
         return _leaf(("mask_predictor", _DECODER[mod[2]]), leaf, False)
-    if mod == ["fc_norm"]:
-        return _leaf(("fc_norm",), leaf, True)
-    if mod[:1] == ["head"]:
+    if len(mod) == 1 and mod[0] in _LN_MODULES:
+        return _leaf(tuple(mod), leaf, True)
+    if mod[:1] in (["head"], ["scene_head"]):
         return _leaf(tuple(mod), leaf, False)
+    if mod[:1] == ["fusion_head"]:
+        return _leaf(tuple(mod), leaf, mod[-1].endswith("_ln"))
     raise ValueError(f"no flax path for port parameter {name!r}")
 
 

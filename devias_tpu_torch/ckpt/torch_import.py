@@ -7,9 +7,11 @@ run_slot_finetuning.py:438-499):
   * unwrap the container by `--model_key` ('model|module', then
     'state_dict'), strip `--model_prefix`
   * strip '_orig_mod.' / 'backbone.' / 'encoder.' prefixes
-  * drop the head when its output width is not the model's
+  * drop a head (`head`, and as in the JAX import also `scene_head` and a
+    linear `fusion_head`) whose output width is not the expected one
   * bicubic positional-embedding interpolation over the spatial grid only
-    (temporal axis preserved)
+    (temporal axis preserved; the CLS row before the patches and the
+    scene-token rows after them kept)
   * a tied agg block reads its one layer from `agg_block.layers.0` (the
     reference stores the same tensors at every index when
     weight_tie_layers=True, ref agg_block/agg_block.py:90-103)
@@ -26,10 +28,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-MODEL_KINDS = ("slot", "plain")
+MODEL_KINDS = ("slot", "plain", "multi_task", "slot_fusion")
 _BACKBONE = ("patch_embed.", "cls_token", "scene_token", "pos_embed", "blocks.", "norm.")
 _KIND_KEYS = {"slot": _BACKBONE + ("agg_block.", "mask_predictor.", "head."),
-              "plain": _BACKBONE + ("fc_norm.", "head.")}
+              "plain": _BACKBONE + ("fc_norm.", "head."),
+              "multi_task": _BACKBONE + ("head.", "scene_head."),
+              "slot_fusion": _BACKBONE + ("agg_block.", "head.", "action_norm.", "scene_norm.", "fusion_head.")}
+# heads dropped when their output width is not `expected_head_out`; the JAX
+# import applies its check to each of them
+# (`devias_tpu/ckpt/torch_import.py:245-280`)
+_CHECKED_HEADS = ("head", "scene_head", "fusion_head")
 
 
 def load_torch_checkpoint_file(path: str, model_key: str = "model|module",
@@ -75,16 +83,18 @@ def interpolate_pos_embed(pos: torch.Tensor, src_spatial: int, dst_spatial: int,
     return x.permute(0, 2, 3, 1).reshape(num_frames_tokens * dst_spatial * dst_spatial, D)
 
 
-def _pos_embed(pos: torch.Tensor, has_cls: bool, dst_spatial: int, frames_tokens: int) -> torch.Tensor:
-    """The pos-embed surgery: extra (cls) rows kept, the patch rows
+def _pos_embed(pos: torch.Tensor, n_lead: int, n_trail: int, dst_spatial: int,
+               frames_tokens: int) -> torch.Tensor:
+    """The pos-embed surgery: the `n_lead` rows before the patches (CLS)
+    and the `n_trail` rows after them (scene tokens) kept, the patch rows
     interpolated when their grid is not `dst_spatial`."""
     flat = pos.reshape(-1, pos.shape[-1]) if pos.dim() == 3 else pos
-    n_extra = 1 if has_cls else 0
-    extra, tokens = flat[:n_extra], flat[n_extra:]
+    n = flat.shape[0]
+    lead, tokens, trail = flat[:n_lead], flat[n_lead:n - n_trail], flat[n - n_trail:]
     src_spatial = int(round((tokens.shape[0] / frames_tokens) ** 0.5))
     if src_spatial == dst_spatial:
         return pos
-    flat = torch.cat([extra, interpolate_pos_embed(tokens, src_spatial, dst_spatial, frames_tokens)], dim=0)
+    flat = torch.cat([lead, interpolate_pos_embed(tokens, src_spatial, dst_spatial, frames_tokens), trail], dim=0)
     return flat[None] if pos.dim() == 3 else flat
 
 
@@ -92,13 +102,14 @@ def import_torch_state_dict(sd: Dict[str, torch.Tensor], model_kind: str, agg_de
                             agg_unique_layers: int = 1, expected_head_out: Optional[int] = None,
                             dst_spatial: Optional[int] = None,
                             frames_tokens: Optional[int] = None) -> Dict[str, torch.Tensor]:
-    """The tensors a `slot` (SlotViT) or `plain` (PlainViT) model takes
-    from a reference state dict, under the port's keys. A tied agg block
-    (`agg_unique_layers` 1) gets `agg_block.layers.0`'s tensors at each of
-    its `agg_depth` round indices; an untied one reads its first
-    `agg_unique_layers` layers. `expected_head_out`: a head of another
-    output width is dropped. `dst_spatial` / `frames_tokens`: the target
-    patch grid of the pos-embed surgery."""
+    """The tensors a model of `model_kind` (`slot` SlotViT, `plain`
+    PlainViT, `multi_task` MultiTaskViT, `slot_fusion` SlotFusionViT)
+    takes from a reference state dict, under the port's keys. A tied agg
+    block (`agg_unique_layers` 1) gets `agg_block.layers.0`'s tensors at
+    each of its `agg_depth` round indices; an untied one reads its first
+    `agg_unique_layers` layers. `expected_head_out`: a head
+    (`_CHECKED_HEADS`) of another output width is dropped. `dst_spatial` /
+    `frames_tokens`: the target patch grid of the pos-embed surgery."""
     if model_kind not in MODEL_KINDS:
         raise ValueError(f"unknown model_kind {model_kind!r}; expected one of {MODEL_KINDS}")
     sd = strip_prefixes(sd)
@@ -107,9 +118,11 @@ def import_torch_state_dict(sd: Dict[str, torch.Tensor], model_kind: str, agg_de
         if not k.startswith(_KIND_KEYS[model_kind]):
             continue
         if k == "pos_embed" and dst_spatial is not None and frames_tokens is not None:
-            v = _pos_embed(v, "cls_token" in sd, dst_spatial, frames_tokens)
-        if k in ("head.weight", "head.bias") and expected_head_out is not None \
-                and sd["head.weight"].shape[0] != expected_head_out:
+            n_trail = sd["scene_token"].shape[-2] if "scene_token" in sd else 0
+            v = _pos_embed(v, int("cls_token" in sd), n_trail, dst_spatial, frames_tokens)
+        head = k.rsplit(".", 1)[0]
+        if head in _CHECKED_HEADS and expected_head_out is not None \
+                and sd[f"{head}.weight"].shape[0] != expected_head_out:
             continue  # mismatched head dropped (ref run_slot_finetuning.py:455-458)
         if k.startswith("agg_block.layers."):
             _, _, idx, rest = k.split(".", 3)

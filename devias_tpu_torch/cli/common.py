@@ -2,8 +2,9 @@
 reference's flag surface, names and defaults kept so published commands
 run unchanged (ref run_slot_finetuning.py:37-247), the one epoch loop, and
 the helpers the entry points share: `run_slot_finetuning`,
-`run_slot_finetuning_hvu`, `eval_slot_finetuning_hvu` and
-`run_class_finetuning`.
+`run_slot_finetuning_hvu`, `eval_slot_finetuning_hvu`,
+`run_class_finetuning`, `run_slot_downstream` and
+`run_multi_task_finetuning`.
 
 Differences from the JAX parser: `--device` defaults to `cuda` (the JAX
 one to `tpu`), and `--profile_dir` captures a `torch.profiler` trace.
@@ -33,6 +34,7 @@ from devias_tpu_torch.train.step import to_device
 from devias_tpu_torch.utils import MetricLogger, TensorLogger
 
 PRINT_FREQ = 50  # steps between the loop's synchronising metric reads
+SCENE_CLASSES = 365  # the Places-365 scene teacher's head, and the unified heads' scene block
 
 
 def build_shared_parser(description: str) -> argparse.ArgumentParser:
@@ -416,6 +418,17 @@ def make_data_config(args, **overrides) -> DataConfig:
     return DataConfig(**kw)
 
 
+def hard_label_criterion(args):
+    """The criterion on integer labels: the label-smoothing cross-entropy
+    when --smoothing > 0, else the cross-entropy (ref
+    run_class_finetuning.py, run_slot_downstream.py:127-131)."""
+    from devias_tpu_torch.losses import cross_entropy, label_smoothing_cross_entropy
+
+    if args.smoothing > 0:
+        return lambda logits, labels: label_smoothing_cross_entropy(logits, labels, args.smoothing)
+    return cross_entropy
+
+
 def make_optim_config(args, total_steps: int, steps_per_epoch: int,
                       agg_block_scale: float = 1.0, num_layers: int = 12) -> OptimConfig:
     warmup = args.warmup_steps if args.warmup_steps > 0 else args.warmup_epochs * steps_per_epoch
@@ -484,10 +497,34 @@ class JsonlLogger:
                 f.write(json.dumps(record) + "\n")
 
 
+def test_and_merge(args, cfg: DataConfig, logits_fn, device: torch.device, rank: int, ntasks: int,
+                   name: str = "test", scene_label_fn=None, label: str = "Final"):
+    """`final_test` over `cfg`'s test split into --output_dir/`name`
+    (targets from `scene_label_fn` when given), then on rank 0 the merge
+    over `ntasks` result files, printed: (top1, top5), or None on the
+    other ranks."""
+    from devias_tpu_torch.data import build_dataset
+    from devias_tpu_torch.eval import final_test, merge_results
+
+    path = os.path.join(args.output_dir or ".", name)
+    ds_test, _ = build_dataset(False, True, cfg)
+    loader = make_eval_loader(ds_test, args)
+    try:
+        final_test(loader, logits_fn, args.batch_size, path, rank=rank, scene_label_fn=scene_label_fn, device=device)
+    finally:
+        loader.close()
+    if rank != 0:
+        return None
+    top1, top5 = merge_results(path, ntasks)
+    print(f"{label} top-1 {top1:.2f} top-5 {top5:.2f}")
+    return top1, top5
+
+
 def finetune_surgery(args, model_kind: str, model, num_classes_total: int, agg_unique_layers: int = 1):
     """--finetune checkpoint load with the reference's surgery (ref
-    run_slot_finetuning.py:438-499) into `model` in place. Returns the
-    load report, or None without --finetune."""
+    run_slot_finetuning.py:438-499) into `model` (of any kind of
+    `ckpt/torch_import.py::MODEL_KINDS`) in place. Returns the load
+    report, or None without --finetune."""
     if not args.finetune:
         return None
     agg = getattr(model, "agg_block", None)

@@ -26,7 +26,6 @@ ran.
 from __future__ import annotations
 
 import argparse
-import os
 
 import numpy as np
 import torch
@@ -34,12 +33,14 @@ import torch
 from devias_tpu_torch.aug.mixup import MixupConfig
 from devias_tpu_torch.ckpt import load_reference_checkpoint
 from devias_tpu_torch.cli.common import (
+    SCENE_CLASSES,
     JsonlLogger,
     attention_kernel_for,
     build_shared_parser,
     eval_fn,
     finetune_surgery,
     global_batch,
+    hard_label_criterion,
     make_data_config,
     make_eval_loader,
     make_hat_loader_factory,
@@ -49,19 +50,18 @@ from devias_tpu_torch.cli.common import (
     reject_unported,
     resume,
     run_train_loop,
+    test_and_merge,
     tiny_overrides,
     world,
 )
 from devias_tpu_torch.core.dist import make_mesh, maybe_init_distributed
 from devias_tpu_torch.data import build_dataset
 from devias_tpu_torch.device import resolve_device
-from devias_tpu_torch.eval import final_test, hat_eval, merge_results, run_scuba, validation_one_epoch
-from devias_tpu_torch.losses import cross_entropy, label_smoothing_cross_entropy, soft_target_cross_entropy
+from devias_tpu_torch.eval import hat_eval, run_scuba, validation_one_epoch
+from devias_tpu_torch.losses import soft_target_cross_entropy
 from devias_tpu_torch.nn import create_model
 from devias_tpu_torch.train import TrainState, make_classification_train_step, make_optimizer
 from devias_tpu_torch.train.step import to_device
-
-SCENE_CLASSES = 365  # the Places-365 teacher's head
 
 
 def get_args(argv=None):
@@ -132,25 +132,7 @@ def make_criterion(args):
             mode=args.mixup_mode, cutmix_minmax=tuple(args.cutmix_minmax) if args.cutmix_minmax else None,
         )
         return soft_target_cross_entropy, mixup_cfg
-    if args.smoothing > 0:
-        return (lambda logits, labels: label_smoothing_cross_entropy(logits, labels, args.smoothing)), None
-    return cross_entropy, None
-
-
-def _final_test(args, logits_fn, out_dir: str, rank: int, ntasks: int, device: torch.device):
-    """final_test over the test split, then (rank 0) the merge: (top1,
-    top5) or None."""
-    ds_test, _ = build_dataset(False, True, make_data_config(args))
-    loader = make_eval_loader(ds_test, args)
-    try:
-        final_test(loader, logits_fn, args.batch_size, os.path.join(out_dir, "test"), rank=rank, device=device)
-    finally:
-        loader.close()
-    if rank != 0:
-        return None
-    top1, top5 = merge_results(os.path.join(out_dir, "test"), ntasks)
-    print(f"Final top-1 {top1:.2f} top-5 {top5:.2f}")
-    return top1, top5
+    return hard_label_criterion(args), None
 
 
 def main(args=None) -> dict:
@@ -175,7 +157,7 @@ def main(args=None) -> dict:
     if args.eval or args.hat_eval or args.run_scuba:
         results = {}
         if args.eval:
-            final = _final_test(args, logits_fn, out_dir, rank, ntasks, dev)
+            final = test_and_merge(args, make_data_config(args), logits_fn, dev, rank, ntasks)
             if final is not None:
                 results["eval"] = {"top1": final[0], "top5": final[1]}
         if args.run_scuba:
@@ -226,7 +208,7 @@ def main(args=None) -> dict:
         loader_val.close()
 
     result = {"epochs": history}
-    final = _final_test(args, logits_fn, out_dir, rank, ntasks, dev)
+    final = test_and_merge(args, make_data_config(args), logits_fn, dev, rank, ntasks)
     if final is not None:
         logger.write({"final_top1": final[0], "final_top5": final[1]})
         result.update(final_top1=final[0], final_top5=final[1])

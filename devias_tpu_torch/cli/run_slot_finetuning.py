@@ -50,6 +50,7 @@ from devias_tpu_torch.cli.common import (
     resume,
     run_knn_protocol,
     run_train_loop,
+    test_and_merge,
     tiny_overrides,
     use_attention_kernel,
     world,
@@ -57,7 +58,7 @@ from devias_tpu_torch.cli.common import (
 from devias_tpu_torch.core.dist import make_mesh, make_sp_mesh, maybe_init_distributed
 from devias_tpu_torch.data import build_dataset
 from devias_tpu_torch.device import resolve_device
-from devias_tpu_torch.eval import final_test, hat_eval, merge_results, run_scuba, validation_one_epoch
+from devias_tpu_torch.eval import hat_eval, run_scuba, validation_one_epoch
 from devias_tpu_torch.losses import SlotLossConfig
 from devias_tpu_torch.nn import create_model
 from devias_tpu_torch.train import TrainState, TrainStepConfig, make_optimizer, make_slot_train_step
@@ -132,14 +133,6 @@ def init_params(args, model, teacher) -> None:
     if args.scene_model_path:
         _, rep = load_reference_checkpoint(teacher, args.scene_model_path, "plain", expected_head_out=365)
         print(f"scene teacher load: {len(rep['loaded'])} tensors")
-
-
-def _final_test(loader, *args, **kw):
-    """`final_test` on a loader made for it, closed after."""
-    try:
-        return final_test(loader, *args, **kw)
-    finally:
-        loader.close()
 
 
 def main(args=None) -> dict:
@@ -240,16 +233,11 @@ def main(args=None) -> dict:
     )
 
     # final test + merge (ref run_slot_finetuning.py:715-726)
-    out_dir = args.output_dir or "."
-    ds_test, _ = build_dataset(False, True, make_data_config(args))
-    _final_test(make_eval_loader(ds_test, args), action_logits_fn, args.batch_size, os.path.join(out_dir, "test"),
-                rank=rank, device=dev)
     result = {"epochs": history}
-    if rank == 0:
-        top1, top5 = merge_results(os.path.join(out_dir, "test"), ntasks)
-        print(f"Final top-1 {top1:.2f} top-5 {top5:.2f}")
-        logger.write({"final_top1": top1, "final_top5": top5})
-        result.update(final_top1=top1, final_top5=top5)
+    final = test_and_merge(args, make_data_config(args), action_logits_fn, dev, rank, ntasks)
+    if final is not None:
+        logger.write({"final_top1": final[0], "final_top5": final[1]})
+        result.update(final_top1=final[0], final_top5=final[1])
     loader_train.close()
     loader_val.close()
     return result
@@ -280,22 +268,15 @@ def run_evaluations(args, model, device: torch.device, action_logits_fn, scene_l
         return {"hat": res}
 
     if args.eval:
-        ds_test, _ = build_dataset(False, True, make_data_config(args))
-        _final_test(make_eval_loader(ds_test, args), action_logits_fn, args.batch_size,
-                    os.path.join(out_dir, "test"), rank=rank, device=device)
-        if rank == 0:
-            top1, top5 = merge_results(os.path.join(out_dir, "test"), ntasks)
-            print(f"Final top-1 {top1:.2f} top-5 {top5:.2f}")
-            results["eval"] = {"top1": top1, "top5": top5}
+        final = test_and_merge(args, make_data_config(args), action_logits_fn, device, rank, ntasks)
+        if final is not None:
+            results["eval"] = {"top1": final[0], "top5": final[1]}
 
     if args.eval_scene:
-        ds_test, _ = build_dataset(False, True, make_data_config(args))
-        _final_test(make_eval_loader(ds_test, args), scene_logits_fn, args.batch_size,
-                    os.path.join(out_dir, "scene_test"), rank=rank, scene_label_fn=teacher_logits_fn, device=device)
-        if rank == 0:
-            top1, top5 = merge_results(os.path.join(out_dir, "scene_test"), ntasks)
-            print(f"Scene top-1 {top1:.2f} top-5 {top5:.2f}")
-            results["eval_scene"] = {"top1": top1, "top5": top5}
+        final = test_and_merge(args, make_data_config(args), scene_logits_fn, device, rank, ntasks,
+                               name="scene_test", scene_label_fn=teacher_logits_fn, label="Scene")
+        if final is not None:
+            results["eval_scene"] = {"top1": final[0], "top5": final[1]}
 
     if args.run_scuba:
         # forced 2x3 views (ref run_scuba.py:19)

@@ -10,6 +10,7 @@ from devias_tpu_torch.losses.slot_loss import (
     hvu_slot_loss,
     kl_div_log_target,
     label_smoothing_cross_entropy,
+    multi_task_loss,
     pad_teacher_logits,
     soft_target_cross_entropy,
 )
@@ -17,5 +18,5 @@ from devias_tpu_torch.losses.slot_loss import (
 __all__ = [
     "SlotLossConfig", "bce_with_logits", "cosine_orthogonality_loss", "cross_entropy", "devias_slot_loss",
     "hvu_slot_loss", "kl_div_log_target", "label_smoothing_cross_entropy", "match_action_scene_slots",
-    "pad_teacher_logits", "soft_target_cross_entropy",
+    "multi_task_loss", "pad_teacher_logits", "soft_target_cross_entropy",
 ]

@@ -1,6 +1,6 @@
 """DEVIAS slot losses and their criteria (port of
 `devias_tpu/losses/slot_loss.py`: `devias_slot_loss`, `hvu_slot_loss`,
-the classification criteria and their helpers).
+`multi_task_loss`, the classification criteria and their helpers).
 
 Everything is computed in float32 with the reference's quirks kept, each
 noted where it is applied.
@@ -9,7 +9,7 @@ noted where it is applied.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -225,3 +225,35 @@ def hvu_slot_loss(student: Dict[str, torch.Tensor], action_targets: torch.Tensor
         "mask_prediction_loss": mask_prediction_loss,
         "mask_distill_loss": mask_distill_loss,
     }
+
+
+def multi_task_loss(student: Dict[str, torch.Tensor], teacher_scene_logit: torch.Tensor, target: torch.Tensor,
+                    num_action_classes: int, logit_criterion: str = "KL", logit_criterion_weight: float = 1.0,
+                    unified_head: bool = False, action_criterion: Callable = cross_entropy,
+                    teacher_min: Optional[torch.Tensor] = None,
+                    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """The multi-task baseline's loss (`devias_tpu/losses/slot_loss.py:279`):
+    `action_criterion` on the action logits, mean over the batch, plus the
+    scene logits' distillation from the teacher: 'KL' to its softmax,
+    summed and divided by the batch ('batchmean') times
+    `logit_criterion_weight`, or 'CE' to its argmax, mean over the batch
+    (unweighted, as the reference). With `unified_head` the teacher's
+    logits are padded to the unified width first (`pad_teacher_logits`,
+    `teacher_min` its `batch_min`). Returns (total, action logits, the two
+    terms)."""
+    action_logit = student["action_logit"].float()
+    scene_logit = student["scene_logit"].float()
+    teacher = teacher_scene_logit.float()
+    B = action_logit.shape[0]
+    if unified_head:
+        teacher = pad_teacher_logits(teacher, num_action_classes, teacher_min)
+    action_loss = action_criterion(action_logit, target).mean()
+    if logit_criterion == "CE":
+        logit_loss = cross_entropy(scene_logit, teacher.argmax(dim=1)).mean()
+    elif logit_criterion == "KL":
+        logit_loss = (kl_div_log_target(scene_logit.log_softmax(dim=-1), teacher.log_softmax(dim=-1)).sum() / B
+                      * logit_criterion_weight)
+    else:
+        raise ValueError(f"unknown logit_criterion {logit_criterion!r}")
+    total = action_loss + logit_loss
+    return total, action_logit, {"action_loss": action_loss, "logit_loss": logit_loss}

@@ -46,7 +46,7 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 PATCH_EMBED_MODES = ("conv", "patchify", "dot")
 # the VideoViT's own top-level modules; a model built on it adds others
-BACKBONE_MODULES = ("patch_embed", "cls_token", "blocks", "norm")
+BACKBONE_MODULES = ("patch_embed", "cls_token", "scene_token", "pos_embed", "blocks", "norm")
 
 
 def sinusoid_position_table(n_position: int, d_hid: int) -> np.ndarray:
@@ -283,21 +283,28 @@ class PatchEmbed3D(nn.Module):
 
 
 class VideoViT(nn.Module):
-    """ViT video backbone on 16x16 patches: patch embed, fixed sinusoid
-    positions, `depth` blocks, final LayerNorm (skipped when
-    `final_norm=False`). `use_cls_token` prepends a learned CLS token;
+    """ViT video backbone on 16x16 patches: patch embed, positions, `depth`
+    blocks, final LayerNorm (skipped when `final_norm=False`).
+    `use_cls_token` prepends a learned CLS token and
+    `num_extra_suffix_tokens` appends learned tokens (`scene_token`, the
+    multi-task scene token), both before the positions are added
+    (`devias_tpu/nn/vit.py:533-551`). The positions are the fixed sinusoid
+    table over all tokens, or with `use_learnable_pos_emb` a `pos_embed`
+    parameter [1, n_tokens, D] for clips of `num_frames` x `img_size`^2.
     `input_norm` applies the ImageNet normalisation on the device (uint8 or
     [0, 1] clips). Block i's drop-path rate is linspace(0, drop_path_rate,
     depth)[i]; `drop_rate` also applies after the position embedding.
     `forward_features(..., seq=mesh)` is the sequence-parallel backbone:
     this rank's frames, this rank's slice of the full sinusoid table, the
     final norm on the local tokens (`core/dist.py::seq_parallel_tokens`
-    drives it and gathers the tokens)."""
+    drives it and gathers the tokens); it has no form with extra tokens or
+    learned positions, as in the JAX package."""
 
     def __init__(self, embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
-                 tubelet_size: int = 2, use_cls_token: bool = False, final_norm: bool = True,
-                 fused_attention: bool = False, exact_gelu: bool = False,
+                 tubelet_size: int = 2, use_cls_token: bool = False, num_extra_suffix_tokens: int = 0,
+                 use_learnable_pos_emb: bool = False, img_size: int = 224, num_frames: int = 16,
+                 final_norm: bool = True, fused_attention: bool = False, exact_gelu: bool = False,
                  patch_embed_mode: Optional[str] = None, input_norm: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -307,6 +314,11 @@ class VideoViT(nn.Module):
         self.drop_rate = drop_rate
         self.patch_embed = PatchEmbed3D(embed_dim, tubelet_size, patch_embed_mode, dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim)) if use_cls_token else None
+        self.scene_token = (nn.Parameter(torch.zeros(1, num_extra_suffix_tokens, embed_dim))
+                            if num_extra_suffix_tokens else None)
+        n_tokens = (num_frames // tubelet_size) * (img_size // PATCH_SIZE) ** 2 + int(use_cls_token) \
+            + num_extra_suffix_tokens
+        self.pos_embed = nn.Parameter(torch.zeros(1, n_tokens, embed_dim)) if use_learnable_pos_emb else None
         dpr = np.linspace(0.0, drop_path_rate, depth)
         self.blocks = nn.ModuleList([
             Block(embed_dim, num_heads, fused_attention, exact_gelu, dtype, drop_rate, attn_drop_rate, float(dpr[i]))
@@ -315,8 +327,9 @@ class VideoViT(nn.Module):
         self._pos_cache: Dict[Tuple[int, torch.device], torch.Tensor] = {}
 
     def init_own_params(self, generator: torch.Generator) -> None:
-        if self.cls_token is not None:
-            trunc_normal_(self.cls_token, 0.02, generator)
+        for p in (self.cls_token, self.scene_token, self.pos_embed):
+            if p is not None:
+                trunc_normal_(p, 0.02, generator)
 
     def _pos(self, n: int, device: torch.device) -> torch.Tensor:
         key = (n, device)
@@ -326,8 +339,8 @@ class VideoViT(nn.Module):
         return self._pos_cache[key]
 
     def backbone_parameters(self):
-        """The backbone's parameters (patch embed, CLS token, blocks, final
-        norm), without what a subclass adds on top."""
+        """The backbone's parameters (patch embed, extra tokens, positions,
+        blocks, final norm), without what a subclass adds on top."""
         return [p for name, p in self.named_parameters() if name.split(".", 1)[0] in BACKBONE_MODULES]
 
     def forward_features(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -341,16 +354,25 @@ class VideoViT(nn.Module):
             x = (x - mean) / std
         x = self.patch_embed(x)
         if seq is not None:
-            if self.cls_token is not None:
-                raise NotImplementedError("sequence parallelism with a CLS token")
+            if self.cls_token is not None or self.scene_token is not None:
+                raise NotImplementedError("sequence parallelism with a CLS or suffix token")
+            if self.pos_embed is not None:
+                raise NotImplementedError("a learnable pos-embed under sequence parallelism")
             n = x.shape[1]
-            pos = self._pos(n * seq.seq_size, x.device)[seq.seq_rank * n:(seq.seq_rank + 1) * n]
+            pos = self._pos(n * seq.seq_size, x.device)[seq.seq_rank * n:(seq.seq_rank + 1) * n][None]
         else:
+            B = x.shape[0]
             if self.cls_token is not None:
-                cls = self.cls_token.to(self.dtype).expand(x.shape[0], -1, -1)
-                x = torch.cat([cls, x], dim=1)
-            pos = self._pos(x.shape[1], x.device)
-        x = dropout(x + pos[None], self.drop_rate, self.training, generator)
+                x = torch.cat([self.cls_token.to(self.dtype).expand(B, -1, -1), x], dim=1)
+            if self.scene_token is not None:
+                x = torch.cat([x, self.scene_token.to(self.dtype).expand(B, -1, -1)], dim=1)
+            if self.pos_embed is not None:
+                if self.pos_embed.shape[1] != x.shape[1]:
+                    raise ValueError(f"pos_embed holds {self.pos_embed.shape[1]} tokens; the clips give {x.shape[1]}")
+                pos = self.pos_embed.to(self.dtype)
+            else:
+                pos = self._pos(x.shape[1], x.device)[None]
+        x = dropout(x + pos, self.drop_rate, self.training, generator)
         for blk in self.blocks:
             x = blk(x, generator, path_generator, seq)
         if self.norm is not None:

@@ -7,9 +7,10 @@ from devias_tpu_torch.train.step import (
     make_classification_train_step,
     make_eval_step,
     make_hvu_train_step,
+    make_multi_task_train_step,
     make_slot_train_step,
 )
 
 __all__ = ["FusedAdamW", "FusedSGD", "OptimConfig", "ScheduledOptimizer", "TrainState", "TrainStepConfig",
-           "make_classification_train_step", "make_eval_step", "make_hvu_train_step", "make_optimizer",
-           "make_slot_train_step"]
+           "make_classification_train_step", "make_eval_step", "make_hvu_train_step", "make_multi_task_train_step",
+           "make_optimizer", "make_slot_train_step"]

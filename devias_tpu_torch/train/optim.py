@@ -5,8 +5,10 @@ adam|sgd|nesterov|momentum`).
 
 Rules, per parameter name of the port (reference layout):
 * layer id: `cls_token`, `pos_embed`, `patch_embed.*` -> 0; `blocks.{i}.*`
-  -> i + 1; everything else -> num_layers + 1. With layer_decay < 1 the lr
-  scale is layer_decay ** (num_layers + 1 - id).
+  -> i + 1; everything else -> num_layers + 1, the multi-task
+  `scene_token` too (the reference's quirk, `devias_tpu/train/optim.py:
+  65-69`). With layer_decay < 1 the lr scale is layer_decay **
+  (num_layers + 1 - id).
 * anything under `agg_block.` takes `agg_block_scale` instead.
 * no weight decay on 1-D tensors, on `*bias` and on `NO_DECAY_NAMES`.
 
@@ -40,7 +42,8 @@ from torch import nn
 from devias_tpu_torch.core.schedules import cosine_schedule
 from devias_tpu_torch.device import DeviceLike, require_on, resolve_device
 
-NO_DECAY_NAMES = ("pos_embed", "cls_token", "suffix_tokens")
+# the port's names of the JAX list's pos_embed, cls_token and suffix_tokens
+NO_DECAY_NAMES = ("pos_embed", "cls_token", "scene_token")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,6 @@
 """Steps of the port (`devias_tpu/train/step.py`): the eval step, the
-DEVIAS slot train step, the HVU slot train step and the plain
-classification train step.
+DEVIAS slot train step, the HVU slot train step, the plain
+classification train step and the multi-task train step.
 
 The slot train step, per micro-batch of `update_freq`: the optional uint8
 or I420 unpack, FAME (mixed clips and patch-grid foreground masks; run
@@ -25,10 +25,11 @@ teacher: FAME-HVU, `hvu_slot_loss`. The classification step
 (`make_classification_train_step`) runs optional mixup / CutMix, the
 model and a criterion on hard or soft targets. Both take `dp_mesh`; their
 batch ops mix across the global micro-batch, as under jit on the JAX data
-mesh (`core/dist.py::over_data_group`). All three steps share the
+mesh (`core/dist.py::over_data_group`). The multi-task step
+(`make_multi_task_train_step`) runs the student, the frozen CLS teacher
+under `no_grad` and `multi_task_loss`. All four steps share the
 accumulation, the reductions and the optimizer step (`_run_step`). The
-multi-task step, the segformer mix and the pipeline-parallel variant are
-not ported yet.
+segformer mix and the pipeline-parallel variant are not ported yet.
 """
 
 from __future__ import annotations
@@ -55,12 +56,19 @@ from devias_tpu_torch.core.dist import (
 )
 from devias_tpu_torch.data.yuv import i420_to_rgb
 from devias_tpu_torch.device import DeviceLike, require_on, resolve_device
-from devias_tpu_torch.losses.slot_loss import SlotLossConfig, cross_entropy, devias_slot_loss, hvu_slot_loss
+from devias_tpu_torch.losses.slot_loss import (
+    SlotLossConfig,
+    cross_entropy,
+    devias_slot_loss,
+    hvu_slot_loss,
+    multi_task_loss,
+)
 from devias_tpu_torch.train.state import TrainState
 
 METRIC_NAMES = ("loss", "action_loss", "scene_loss", "cosine_loss", "mask_prediction_loss",
                 "mask_distill_loss", "class_acc")
 CLASSIFICATION_METRIC_NAMES = ("loss", "class_acc")
+MULTI_TASK_METRIC_NAMES = ("loss", "action_loss", "logit_loss", "class_acc")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -445,6 +453,74 @@ def make_classification_train_step(model: nn.Module, optimizer: torch.optim.Opti
         return _run_step(state, optimizer, model, videos.shape[0], update_freq, micro,
                          own_generator if generator is None else generator, draws, dp_mesh,
                          CLASSIFICATION_METRIC_NAMES, lr_fn, host_metrics)
+
+    return step
+
+
+def multi_task_loss_of(model: nn.Module, teacher: nn.Module, videos: torch.Tensor, labels: torch.Tensor,
+                       num_action_classes: int, logit_criterion: str = "KL", logit_criterion_weight: float = 1.0,
+                       unified_head: bool = False, action_criterion: Callable = cross_entropy,
+                       generator: Optional[torch.Generator] = None, dp_mesh: Optional[SPMesh] = None):
+    """One micro-batch of the multi-task step up to its loss: the student in
+    its own mode, the frozen teacher under `no_grad` on the same clips,
+    `multi_task_loss`, and the accuracy over the first `num_action_classes`
+    action logits. Under `dp_mesh` the student draws from this rank's
+    folded stream, and a unified head's teacher pad takes the global
+    micro-batch's minimum, as the JAX step does under jit. Returns (total
+    loss, the four metrics detached)."""
+    model_gen = generator
+    if dp_mesh is not None:
+        model_gen = mix_generators(generator, dp_mesh, videos.device)[1]
+    student = model(videos, generator=model_gen)
+    with torch.no_grad():
+        teacher_logits = teacher(videos)["logits"]
+    teacher_min = None
+    if unified_head and dp_mesh is not None:
+        teacher_min = min_over_data(teacher_logits.float().min(), dp_mesh)
+    total, action_logit, parts = multi_task_loss(student, teacher_logits, labels, num_action_classes,
+                                                 logit_criterion, logit_criterion_weight, unified_head,
+                                                 action_criterion, teacher_min)
+    acc = (action_logit[:, :num_action_classes].argmax(dim=-1) == labels).float().mean()
+    metrics = {k: v.detach() for k, v in parts.items()}
+    return total, {**metrics, "loss": total.detach(), "class_acc": acc}
+
+
+def make_multi_task_train_step(model: nn.Module, teacher: nn.Module, optimizer: torch.optim.Optimizer,
+                               num_action_classes: int, logit_criterion: str = "KL",
+                               logit_criterion_weight: float = 1.0, unified_head: bool = False,
+                               action_criterion: Callable = cross_entropy, update_freq: int = 1,
+                               lr_fn: Optional[Callable[[int], float]] = None, dp_mesh: Optional[SPMesh] = None,
+                               device: DeviceLike = None) -> Callable:
+    """Multi-task baseline step `step(state, batch, generator=None,
+    host_metrics=False) -> metrics`
+    (`devias_tpu/train/step.py:459-540`): per micro-batch the student
+    (`MultiTaskViT`) in train mode, the frozen scene teacher under
+    `no_grad` and `multi_task_loss` (`multi_task_loss_of`), the engine's
+    accumulation over `update_freq` micro-batches, then the optimizer.
+
+    `batch` is {"videos": [B, T, H, W, C], "labels": [B]}; device, update
+    frequency, generator and `dp_mesh` as in `make_hvu_train_step`; the
+    step has no batch op whose draws a caller could fix. Returns `loss`, `action_loss`, `logit_loss`,
+    `class_acc`, `grad_norm` and, with `lr_fn`, `lr`."""
+    _check_dp_mesh(dp_mesh)
+    dev = resolve_device(device)
+    require_on(model, dev)
+    require_on(teacher, dev, "teacher")
+    teacher.eval().requires_grad_(False)
+    own_generator = _layout_generator(dp_mesh, dev)
+
+    def step(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None,
+             host_metrics: bool = False):
+        videos = to_device(batch["videos"], dev)
+        labels = to_device(batch["labels"], dev).long()
+
+        def micro(sl, gen, _):
+            return multi_task_loss_of(model, teacher, videos[sl], labels[sl], num_action_classes, logit_criterion,
+                                      logit_criterion_weight, unified_head, action_criterion, gen, dp_mesh)
+
+        return _run_step(state, optimizer, model, videos.shape[0], update_freq, micro,
+                         own_generator if generator is None else generator, None, dp_mesh,
+                         MULTI_TASK_METRIC_NAMES, lr_fn, host_metrics)
 
     return step
 

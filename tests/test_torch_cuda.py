@@ -1,7 +1,7 @@
 """K1-K5 on the card: the CUDA kernels against their plain versions in
 bf16, autograd through them, two runs bitwise equal, the wrappers'
-refusals, and the README's tiny CLI command on the card (head dim 16, so
-without K1). Marked `cuda`; each test skips without a card.
+refusals, and the tiny CLI commands on the card (head dim 16, so without
+K1). Marked `cuda`; each test skips without a card.
 This file imports neither JAX nor the JAX package, so on a machine with a
 card and no JAX it runs as
 `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`."""
@@ -49,9 +49,10 @@ def _inputs(card, B, N, H, seed):
 
 # (B, N, H): each edge of the kernels' 128-row tiles (under one tile, one
 # short of it, exactly one, one over), the student's 1568 and the teacher's
-# 1569 tokens, and the small shapes
+# 1569 tokens, the multi-task student's 1570 (last q and key tiles of 34
+# rows), and the small shapes
 SHAPES = [(2, 64, 2), (2, 77, 3), (1, 1569, 12), (3, 9, 1), (2, 127, 2), (2, 128, 2), (1, 129, 3),
-          (1, 1568, 12)]
+          (1, 1568, 12), (2, 1570, 12)]
 
 
 @pytest.mark.parametrize("B,N,H", SHAPES)
@@ -220,11 +221,13 @@ def test_head_major_kernels_match_plain_versions(card, B, H, N):
 
 def test_backward_kernels_are_deterministic(card):
     """Every output tile of the backward has one owner and no atomics: two
-    runs of K1-bwd, K2-bwd and K3-bwd on the same inputs are bitwise equal."""
-    qkv, do = _inputs(card, 2, 1569, 12, 9)
-    o, m, l = attention_qkv_fwd_stats(qkv, 12, 0.125)
-    first = attention_qkv_bwd(qkv, o, do, m, l, 12, 0.125)
-    assert torch.equal(first, attention_qkv_bwd(qkv, o, do, m, l, 12, 0.125))
+    runs of K1-bwd (at the teacher's 1569 and the multi-task student's 1570
+    tokens), K2-bwd and K3-bwd on the same inputs are bitwise equal."""
+    for N in (1569, 1570):
+        qkv, do = _inputs(card, 2, N, 12, 9)
+        o, m, l = attention_qkv_fwd_stats(qkv, 12, 0.125)
+        first = attention_qkv_bwd(qkv, o, do, m, l, 12, 0.125)
+        assert torch.equal(first, attention_qkv_bwd(qkv, o, do, m, l, 12, 0.125)), N
     q, kv, dq_o = _normal(card, (2, 392, 12 * 64), 1), _normal(card, (2, 1568, 24 * 64), 2), _normal(card, (2, 392, 12 * 64), 3)
     o, m, l = attention_q_kv_fwd_stats(q, kv, 12, 0.125)
     first = attention_q_kv_bwd(q, kv, o, dq_o, m, l, 12, 0.125)
@@ -444,3 +447,61 @@ def test_tiny_class_cli_trains_on_the_card(card, tmp_path):
     assert np.isfinite(result["final_top1"]) and _finite_records(tmp_path / "out" / "log.txt")
     state = torch.load(tmp_path / "out" / "ckpt" / "checkpoint-0.pth", weights_only=True)["optimizer"]["state"]
     assert all(set(v) == {"momentum_buffer"} for v in state.values())
+
+
+def test_tiny_downstream_cli_trains_and_evaluates_on_the_card(card, tmp_path):
+    """`run_slot_downstream --smoke_tiny` (concat, MLP fusion head, tied agg)
+    on the card: `--finetune` on a tiny slot checkpoint, one epoch,
+    validation, the final test; then `--eval` on its checkpoint (the same
+    top-1); finite metrics, no K1 launch."""
+    from devias_tpu_torch.cli import run_slot_downstream as ds_cli
+    from devias_tpu_torch.kernels import attention
+    from devias_tpu_torch.nn import create_model
+
+    for name, n in (("train.csv", 16), ("val.csv", 8), ("test.csv", 8)):
+        (tmp_path / name).write_text("\n".join(f"{name[0]}{i}.mp4 {i % 5}" for i in range(n)))
+    slot = create_model("slot_vit_base_patch16_224", device="cpu", seed=3, depth=2, embed_dim=64, num_heads=4,
+                        num_classes=5, num_latents=2, agg_depth=2, img_size=32)
+    torch.save({"model": slot.state_dict()}, tmp_path / "slot.pth")
+    flags = TINY_FLAGS + ["--data_set", "UCF101", "--nb_classes", "5", "--downstream_nb_classes", "5",
+                          "--num_latents", "2", "--agg_depth", "2", "--agg_weights_tie", "--head_type", "mlp",
+                          "--test_num_segment", "1", "--test_num_crop", "1", "--data_path", str(tmp_path)]
+    attention.reset_launch_counts()
+    result = ds_cli.main(ds_cli.get_args(flags + ["--finetune", str(tmp_path / "slot.pth"),
+                                                  "--output_dir", str(tmp_path / "out")]))
+    again = ds_cli.main(ds_cli.get_args(flags + ["--eval", "--finetune",
+                                                 str(tmp_path / "out" / "ckpt" / "checkpoint-0.pth"),
+                                                 "--output_dir", str(tmp_path / "eval")]))
+    torch.cuda.synchronize()
+    assert not any(attention.launch_counts().values())
+    assert np.isfinite(result["final_top1"]) and _finite_records(tmp_path / "out" / "log.txt")
+    assert again["eval"]["top1"] == result["final_top1"]
+
+
+def test_tiny_multi_task_cli_trains_and_evaluates_on_the_card(card, tmp_path):
+    """`run_multi_task_finetuning --smoke_tiny --unified_head` with a tiny
+    CLS teacher from `--scene_model_path` on the card: one epoch,
+    validation, the final test; then `--eval --eval_scene` on its
+    checkpoint (the same top-1, a finite scene test); no K1 launch."""
+    from devias_tpu_torch.cli import run_multi_task_finetuning as mt_cli
+    from devias_tpu_torch.kernels import attention
+    from devias_tpu_torch.nn import create_model
+
+    for name, n in (("train.csv", 16), ("val.csv", 8), ("test.csv", 8)):
+        (tmp_path / name).write_text("\n".join(f"{name[0]}{i}.mp4 {i % 5}" for i in range(n)))
+    teacher = create_model("vit_base_patch16_224", device="cpu", seed=3, depth=2, embed_dim=64, num_heads=4,
+                           num_classes=365, use_mean_pooling=False)
+    torch.save({"model": teacher.state_dict()}, tmp_path / "teacher.pth")
+    flags = TINY_FLAGS + ["--data_set", "UCF101", "--nb_classes", "5", "--unified_head", "--test_num_segment", "1",
+                          "--test_num_crop", "1", "--scene_model_path", str(tmp_path / "teacher.pth"),
+                          "--data_path", str(tmp_path)]
+    attention.reset_launch_counts()
+    result = mt_cli.main(mt_cli.get_args(flags + ["--output_dir", str(tmp_path / "out")]))
+    again = mt_cli.main(mt_cli.get_args(flags + ["--eval", "--eval_scene", "--finetune",
+                                                 str(tmp_path / "out" / "ckpt" / "checkpoint-0.pth"),
+                                                 "--output_dir", str(tmp_path / "eval")]))
+    torch.cuda.synchronize()
+    assert not any(attention.launch_counts().values())
+    assert np.isfinite(result["final_top1"]) and _finite_records(tmp_path / "out" / "log.txt")
+    assert again["eval"]["top1"] == result["final_top1"]
+    assert np.isfinite(list(again["eval_scene"].values())).all()

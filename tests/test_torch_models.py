@@ -94,9 +94,9 @@ def test_state_dict_from_jax_rejects_wrong_kind():
     with pytest.raises(ValueError, match="lack"):
         state_dict_from_jax(params, "slot")
     with pytest.raises(ValueError, match="unknown model_kind"):
-        state_dict_from_jax(params, "multi_task")
+        state_dict_from_jax(params, "segformer")
 
 
 def test_create_model_lists_registry_on_unknown_name():
     with pytest.raises(ValueError, match="slot_vit_base_patch16_224"):
-        create_model("disentangle_vit_base_patch16_224", device="cpu")
+        create_model("vit_large_patch16_224", device="cpu")
