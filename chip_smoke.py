@@ -143,8 +143,32 @@ prints one JSON line, and the first failure exits non-zero:
 18. mt_cli: `run_multi_task_finetuning --unified_head` with the teacher
    from `--scene_model_path`, a 2-step epoch, validation, the final test,
    then `--eval --eval_scene` on its checkpoint (the same top-1).
+19. options_train: phase 5's step with checkpointed blocks (`remat`),
+   drop-path 0.1 and FAME's exact top-k
+   selection: counted steps (12 K1-fwd, 24 K1-fwd stats, the forward's and
+   the recompute's, and 12 K1-bwd each), timed ones beside phase 5's, then
+   the same without `remat` (12 K1-fwd stats each); options_vs_plain on 2
+   clips; remat_vs_not, the checkpointed against
+   the plain blocks on 2 clips with one generator seed (gradients within
+   REMAT_TOL, the generator's final state equal).
+20. fame_modes: `compute_fame_masks` at B=12 on structured 16x224x224
+   clips in the threshold, exact top-k and 4x downsampled modes: ms each,
+   and the card's masks against the CPU's (share of equal pixels).
+21. attn_drop_train: the flagship step with attention dropout 0.1 (the
+   student's layers take the plain attention with dropout, as in JAX):
+   counted steps (12 teacher K1-fwd each, no K1 stats or backward), timed
+   ones, peak memory; then its weights in eval (12 K1-fwd) against the
+   same weights at attn_drop 0, bitwise.
+22. int8_teacher: the CLS teacher's forward at B=12 in bf16 and with
+   `int8_dense` (w8a8 through `torch._int_mm`): ms each, 12 K1-fwd each,
+   the logits' cosine and argmax agreement, a profile of each; one
+   `int8_dot` card vs CPU.
+23. options_cli: `run_slot_finetuning --use_checkpoint --teacher_int8
+   --drop_path 0.1`, a 2-step epoch, validation, the final test, then
+   `--eval` on its checkpoint (K1: 12 K1-fwd, 24 stats and 12 bwd per step).
 
-Then one `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
+Then a `script` line with the script's own seconds, one
+`{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 Exits non-zero, printing no result, without CUDA or without the port.
 """
 
@@ -2296,6 +2320,288 @@ def phase_mt_cli(attn, card):
                       {"K1-fwd": 12 * (steps + val_b + test_b), "K1-fwd-stats": 12 * steps, "K1-bwd": 12 * steps},
                       {"K1-fwd": 12 * test_b + 24 * test_b})
 
+# options_train: the flagship step with the options this slice ported
+OPTIONS_KW = dict(remat=True, drop_path_rate=0.1)
+OPTIONS_WINDOW = 10
+# remat_vs_not: the checkpointed step's gradients against the plain one's,
+# relative to the largest magnitude (bitwise is expected)
+REMAT_TOL = 1e-5
+
+
+def _options_parts():
+    """The flagship step's loss config and its step config with FAME's
+    exact top-k selection."""
+    from devias_tpu_torch.aug import FAMEConfig
+
+    loss_cfg, step_cfg = _train_parts()
+    return loss_cfg, dataclasses.replace(step_cfg, fame=FAMEConfig(beta=0.5, prob_aug=0.8, exact_topk=True))
+
+
+def _small_slot_batch(seed: int):
+    """2 clips, their labels and fixed FAME draws on the card."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    videos = torch.from_numpy(rng.standard_normal((2,) + CLIPS[1:], dtype=np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, NUM_CLASSES, size=2)).to(dev)
+    draws = {"perm": torch.tensor([1, 0], device=dev), "keep": torch.tensor([True, True], device=dev)}
+    return videos, labels, draws
+
+
+def phase_options_train(attn, card, train_ms: float):
+    """The flagship slot step of phase 5 with checkpointed blocks
+    (`remat`), drop-path 0.1 and FAME's exact top-k
+    selection at B=12: TRAIN_STEPS counted steps (12 teacher K1-fwd; 24
+    student K1-fwd stats, the forward's and the recompute's, and 12 K1-bwd
+    per step), OPTIONS_WINDOW timed ones beside phase 5's ms; then the
+    same without `remat` (12 K1-fwd stats per step), timed the same way,
+    for what the recompute costs and saves. Then options_vs_plain, the
+    step's loss on 2 clips through fused and plain attention, held as
+    train_vs_plain holds it; and remat_vs_not, the same 2 clips through
+    the checkpointed and the plain blocks with one generator seed: every
+    gradient within REMAT_TOL of its largest magnitude and the generator's
+    state after the step equal. Returns the K1 counts."""
+    from devias_tpu_torch.nn import create_model
+    from devias_tpu_torch.train import OptimConfig, TrainState, make_optimizer, make_slot_train_step
+    from devias_tpu_torch.train.step import slot_loss
+
+    loss_cfg, step_cfg = _options_parts()
+    rng = np.random.default_rng(0)
+    batch = {"videos": rng.standard_normal(CLIPS, dtype=np.float32), "labels": rng.integers(0, NUM_CLASSES, size=B)}
+    watch = TRAIN_WATCH
+    counted, sd = None, None
+    for remat in (True, False):
+        student = create_model("slot_vit_base_patch16_224", seed=0, fused_attention=True,
+                               **dict(OPTIONS_KW, remat=remat), **SLOT_KW)
+        teacher = create_model("vit_base_patch16_224", seed=1, fused_attention=True, **TEACHER_KW)
+        opt, lr_fn = make_optimizer(student, OptimConfig(lr=5e-4, total_steps=1000, warmup_steps=10))
+        state = TrainState.create(student, opt)
+        step = make_slot_train_step(student, teacher, opt, loss_cfg, step_cfg, lr_fn)
+        params = dict(student.named_parameters())
+        before = {n: params[n].detach().clone() for n in watch}
+        counts, ms, _ = _step_phase(
+            attn, card, {"phase": "options_train" if remat else "options_train_no_remat",
+                         "options": dict(OPTIONS_KW, remat=remat), "fame_exact_topk": True,
+                         "phase5_ms_per_step": train_ms},
+            step, state, batch, {"K1-fwd": 12, "K1-fwd-stats": 24 if remat else 12, "K1-bwd": 12}, OPTIONS_WINDOW)
+        changed = {n: (params[n].detach() - before[n]).abs().max().item() for n in watch}
+        if not all(v > 0 for v in changed.values()):
+            fail(f"options_train left parameters unchanged: {changed}")
+        counted = counts if counted is None else {k: counted[k] + counts[k] for k in counts}
+        if remat:
+            sd = {k: v.clone() for k, v in student.state_dict().items()}
+        del student, teacher, opt, state, step, params
+        torch.cuda.empty_cache()
+
+    videos, labels, draws = _small_slot_batch(1)
+    out = {}
+    for fused, remat in ((True, True), (False, True), (True, False)):
+        model = create_model("slot_vit_base_patch16_224", seed=0, fused_attention=fused,
+                             **dict(OPTIONS_KW, remat=remat), **SLOT_KW).train()
+        model.load_state_dict(sd)
+        teacher = create_model("vit_base_patch16_224", seed=1, fused_attention=fused, **TEACHER_KW)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        loss, _ = slot_loss(model, teacher, videos, labels, loss_cfg, step_cfg, gen, draws)
+        loss.backward()
+        out[fused, remat] = (loss.item(), {n: p.grad.float().clone() for n, p in model.named_parameters()},
+                             gen.get_state())
+        del model, teacher, loss
+        torch.cuda.empty_cache()
+    (loss_f, grads_f, state_f), (loss_p, grads_p, _), (loss_n, grads_n, state_n) = (
+        out[True, True], out[False, True], out[True, False])
+    row = {"phase": "options_vs_plain", "card": card, "clips": 2}
+    ok = _held(row, loss_f, loss_p, {n: grads_f[n] for n in watch}, {n: grads_p[n] for n in watch})
+    emit(row)
+    if not ok:
+        fail("the options step with fused and plain attention disagree beyond their limits")
+    worst = max(((grads_f[n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item() for n, g in grads_n.items())
+    bitwise = all(torch.equal(grads_f[n], g) for n, g in grads_n.items()) and loss_f == loss_n
+    same_state = torch.equal(state_f, state_n)
+    emit({"phase": "remat_vs_not", "card": card, "clips": 2, "loss_remat": loss_f, "loss_plain": loss_n,
+          "max_rel_grad_err": worst, "tol": REMAT_TOL, "bitwise": bitwise, "generator_states_equal": same_state})
+    if worst > REMAT_TOL or not same_state:
+        fail("checkpointed and plain blocks disagree, or the generator ended elsewhere")
+    return counted
+
+
+# fame_modes: 12 structured clips (a static textured background, a moving
+# square, noise, and a static noise-free band where the differences are 0)
+FAME_MODES = (("threshold", {}), ("exact_topk", {"exact_topk": True}), ("downsample4", {"tubelet_mask_downsample": 4}))
+FAME_ITERS = 5
+FAME_EQUAL_SHARE = 0.999
+
+
+def _structured_clips(seed: int) -> np.ndarray:
+    """[B, 16, 224, 224, 3] clips in [0, 1] (denormalised)."""
+    rng = np.random.default_rng(seed)
+    T, S = CLIPS[1], CLIPS[2]
+    bg = rng.uniform(size=(B, 1, S, S, 3)).astype(np.float32) * 0.5
+    x = np.repeat(bg, T, axis=1)
+    for b in range(B):
+        color = rng.uniform(0.4, 1.0, size=3).astype(np.float32)
+        for t in range(T):
+            r, c = 20 + 4 * t + b, 30 + 5 * t
+            x[b, t, r:r + 64, c:c + 64] = color * (0.8 + 0.2 * rng.uniform(size=(64, 64, 1)).astype(np.float32))
+    x += 0.02 * rng.standard_normal(x.shape, dtype=np.float32)
+    x[:, :, 160:] = bg[:, :, 160:]
+    return np.clip(x, 0.0, 1.0)
+
+
+def phase_fame_modes(card):
+    """`compute_fame_masks` at B=12 on 16x224x224 clips in three modes
+    (threshold, exact_topk, tubelet_mask_downsample 4): ms per call on the
+    card, and the card's masks against the port's CPU masks on the same
+    clips, the share of equal pixels held to FAME_EQUAL_SHARE."""
+    from devias_tpu_torch.aug.fame import FAMEConfig, compute_fame_masks
+
+    clips = _structured_clips(2)
+    on_card = torch.from_numpy(clips).cuda()
+    rows = {}
+    for label, kw in FAME_MODES:
+        cfg = FAMEConfig(**kw)
+        mask, per = compute_fame_masks(on_card, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FAME_ITERS):
+            compute_fame_masks(on_card, cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / FAME_ITERS * 1e3
+        mask_c, per_c = compute_fame_masks(torch.from_numpy(clips), cfg)
+        share = {"clip": (mask.cpu() == mask_c).float().mean().item(),
+                 "per_pair": (per.cpu() == per_c).float().mean().item()}
+        rows[label] = {"ms": ms, "equal_share": share, "per_pair_shape": list(per.shape),
+                       "fg_fraction": mask.mean().item()}
+    emit({"phase": "fame_modes", "card": card, "clips": B, "iters": FAME_ITERS, "min_share": FAME_EQUAL_SHARE,
+          "modes": rows})
+    if any(v < FAME_EQUAL_SHARE for r in rows.values() for v in r["equal_share"].values()):
+        fail("FAME masks on the card and on the CPU disagree beyond their limit")
+
+
+def phase_attn_drop_train(attn, card):
+    """The flagship slot step with attention-probability dropout 0.1 at
+    B=12: the student's training layers take the plain attention with
+    dropout (the JAX package's dispatch), so per step only the teacher's 12
+    K1-fwd launch; metrics finite, parameters changed, ms and peak memory.
+    Then the trained weights in eval, where K1 runs (12 K1-fwd per batch),
+    against the same weights at attn_drop_rate 0: bitwise equal outputs.
+    Returns the K1 counts of the steps and the eval batch."""
+    from devias_tpu_torch.nn import create_model
+    from devias_tpu_torch.train import OptimConfig, TrainState, make_optimizer, make_slot_train_step
+
+    loss_cfg, step_cfg = _train_parts()
+    kw = dict(SLOT_KW, attn_drop_rate=0.1)
+    student = create_model("slot_vit_base_patch16_224", seed=0, fused_attention=True, **kw)
+    teacher = create_model("vit_base_patch16_224", seed=1, fused_attention=True, **TEACHER_KW)
+    opt, lr_fn = make_optimizer(student, OptimConfig(lr=5e-4, total_steps=1000, warmup_steps=10))
+    state = TrainState.create(student, opt)
+    step = make_slot_train_step(student, teacher, opt, loss_cfg, step_cfg, lr_fn)
+    rng = np.random.default_rng(0)
+    batch = {"videos": rng.standard_normal(CLIPS, dtype=np.float32), "labels": rng.integers(0, NUM_CLASSES, size=B)}
+    params = dict(student.named_parameters())
+    before = {n: params[n].detach().clone() for n in TRAIN_WATCH}
+    counts, ms, _ = _step_phase(attn, card, {"phase": "attn_drop_train", "attn_drop_rate": 0.1}, step, state, batch,
+                                {"K1-fwd": 12}, CLASS_WINDOW)
+    changed = {n: (params[n].detach() - before[n]).abs().max().item() for n in TRAIN_WATCH}
+    if not all(v > 0 for v in changed.values()):
+        fail(f"attn_drop_train left parameters unchanged: {changed}")
+    del teacher, opt, state, step, params
+    no_drop = create_model("slot_vit_base_patch16_224", seed=0, fused_attention=True, **SLOT_KW)
+    no_drop.load_state_dict(student.state_dict())
+    videos = torch.from_numpy(batch["videos"]).cuda()
+    attn.reset_launch_counts()
+    with torch.inference_mode():
+        got = student.eval()(videos)
+        eval_counts = attn.launch_counts()
+        want = no_drop(videos)
+    torch.cuda.synchronize()
+    same = all(torch.equal(got[k], want[k]) for k in ("slots", "slots_head", "attn"))
+    emit({"phase": "attn_drop_eval", "card": card, "clips": B, "launches": eval_counts, "bitwise_equal": same})
+    if {k: v for k, v in eval_counts.items() if v} != {"K1-fwd": 12} or not same:
+        fail(f"attn_drop eval launched {eval_counts} or differs from attn_drop 0 (bitwise {same})")
+    del student, no_drop
+    torch.cuda.empty_cache()
+    return {k: counts[k] + eval_counts[k] for k in counts}
+
+
+INT8_ITERS = 10
+INT8_COSINE = 0.99
+INT8_DOT_TOL = 1e-6
+
+
+def phase_int8_teacher(attn, card):
+    """The CLS scene teacher's forward at B=12 in bf16 and with
+    `int8_dense=True` (w8a8 qkv, proj, fc1, fc2 through `torch._int_mm`),
+    the same seeded weights with a spread head: 12 K1-fwd each, ms per
+    forward, the logits' cosine (held to INT8_COSINE, as
+    `tests/test_quant.py` holds JAX's) and argmax agreement, a profile of
+    two forwards of each (where the int8 teacher's time goes); and one
+    `int8_dot` at the teacher's qkv shape on the card against the CPU on
+    the same inputs, within INT8_DOT_TOL relative. Returns the K1 counts."""
+    from devias_tpu_torch.nn import create_model
+    from devias_tpu_torch.nn.quant import int8_dot
+
+    videos = torch.from_numpy(np.random.default_rng(5).standard_normal(CLIPS, dtype=np.float32)).cuda()
+    logits, ms, profiles, total = {}, {}, {}, None
+    for label, int8 in (("bf16", False), ("int8", True)):
+        teacher = create_model("vit_base_patch16_224", seed=1, fused_attention=True, int8_dense=int8, **TEACHER_KW)
+        _spread_heads(teacher, 25)
+        attn.reset_launch_counts()
+        with torch.inference_mode():
+            logits[label] = teacher(videos)["logits"].float()
+            counts = attn.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(INT8_ITERS):
+                teacher(videos)
+            torch.cuda.synchronize()
+        ms[label] = (time.perf_counter() - t0) / INT8_ITERS * 1e3
+        with torch.inference_mode():
+            profiles[label] = profile_breakdown(lambda: teacher(videos), 2)
+        if {k: v for k, v in counts.items() if v} != {"K1-fwd": 12}:
+            fail(f"the {label} teacher launched {counts}; want 12 K1-fwd")
+        total = counts if total is None else {k: total[k] + counts[k] for k in counts}
+        qkv_w = teacher.blocks[0].attn.qkv.weight.detach()
+        del teacher
+    a, b = logits["bf16"], logits["int8"]
+    cosine = (F.cosine_similarity(a.flatten(), b.flatten(), dim=0)).item()
+    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((B, 1569, 768), dtype=np.float32)).to(torch.bfloat16)
+    want = int8_dot(x, qkv_w.cpu())
+    got = int8_dot(x.cuda(), qkv_w).cpu()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    emit({"phase": "int8_teacher", "card": card, "clips": B, "iters": INT8_ITERS, "ms": ms,
+          "int8_over_bf16": ms["int8"] / ms["bf16"], "logits_cosine": cosine, "cosine_min": INT8_COSINE,
+          "argmax_agreement": agree, "int8_dot_shape": [B * 1569, 768, qkv_w.shape[0]], "int8_dot_rel_err": rel,
+          "int8_dot_bitwise": torch.equal(got, want), "int8_dot_tol": INT8_DOT_TOL, "profile": profiles})
+    if not cosine >= INT8_COSINE or rel > INT8_DOT_TOL:
+        fail(f"int8 teacher: cosine {cosine}, int8_dot card vs CPU {rel}")
+    return total
+
+
+OPTIONS_CLI_FLAGS = ["--model", "slot_vit_base_patch16_224", "--num_latents", "2", "--agg_depth", "8",
+                     "--agg_weights_tie", "--mask_model", "FAME", "--data_set", "Kinetics-400", "--use_checkpoint",
+                     "--teacher_int8", "--drop_path", "0.1"] + SHORT_VIEWS
+
+
+def phase_options_cli(attn, card):
+    """`run_slot_finetuning` in-process at full width with
+    `--use_checkpoint --teacher_int8 --drop_path 0.1`: a 2-step epoch,
+    validation, the final test, then `--eval` on its checkpoint (the same
+    top-1). K1 counts: per step 12 K1-fwd in the int8 teacher, 24 K1-fwd
+    stats and 12 K1-bwd in the checkpointed student; 12 K1-fwd per
+    validation and test batch."""
+    from devias_tpu_torch.cli import run_slot_finetuning as cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_filelists(tmp, NUM_CLASSES)
+        runs = _train_then_eval(attn, cli, OPTIONS_CLI_FLAGS + ["--data_path", tmp], [], ["--eval"],
+                                os.path.join(tmp, "out"))
+    row = _cli_row("options_cli", card, runs)
+    steps, val_b, test_b = SHORT_TRAIN // B, -(-SHORT_VAL // B), -(-SHORT_TEST * 2 // B)
+    return _check_cli("options CLI", row, runs,
+                      {"K1-fwd": 12 * (steps + val_b + test_b), "K1-fwd-stats": 24 * steps, "K1-bwd": 12 * steps},
+                      {"K1-fwd": 12 * test_b})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -2312,6 +2618,7 @@ def main() -> int:
         print(f"chip_smoke: cannot import the port ({exc}); run from the repository root", file=sys.stderr)
         return 1
 
+    start = time.perf_counter()
     card = phase_device(build)
     fwd_err, fwd_timing = phase_kernel(attn)
     stats_err, stats_timing = phase_kernel_stats(attn)
@@ -2339,11 +2646,17 @@ def main() -> int:
     ds_cli_launches = phase_downstream_cli(attn, card)
     mt_launches, _ = phase_mt_train(attn, card)
     mt_cli_launches = phase_mt_cli(attn, card)
+    options_launches = phase_options_train(attn, card, train_ms)
+    phase_fame_modes(card)
+    attn_drop_launches = phase_attn_drop_train(attn, card)
+    int8_launches = phase_int8_teacher(attn, card)
+    options_cli_launches = phase_options_cli(attn, card)
 
     def launches(name):
         return sum(c[name] for c in (train_launches, sp_launches, cli_launches, dp_launches, hat_launches,
                                      hvu_launches, hvu_cli_launches, class_launches, class_cli_launches,
-                                     ds_launches, ds_cli_launches, mt_launches, mt_cli_launches))
+                                     ds_launches, ds_cli_launches, mt_launches, mt_cli_launches, options_launches,
+                                     attn_drop_launches, int8_launches, options_cli_launches))
 
     def at_1570(t):
         return {k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
@@ -2374,6 +2687,7 @@ def main() -> int:
         ("K5 patchify_embed", "patch_embed.cu", "scripts/retest_patchify_pallas.py:35",
          pe.patchify_embed.launches, pe_err, pe_timing),
     )
+    emit({"phase": "script", "card": card, "seconds": time.perf_counter() - start})
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": " + ".join(f"devias_tpu_torch/kernels/csrc/{f}" for f in src.split(" + ")),
         "replaces": replaces, "launches": n, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],

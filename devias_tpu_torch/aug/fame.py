@@ -1,6 +1,5 @@
 """FAME foreground/background mixing on the device (port of
-`devias_tpu/aug/fame.py`, the default path: threshold selection and full
-resolution).
+`devias_tpu/aug/fame.py`).
 
 On a batch of clips [B, T, H, W, C]:
   1. denormalise to [0, 1];
@@ -10,20 +9,26 @@ On a batch of clips [B, T, H, W, C]:
   3. per map, a colour-histogram refinement against the clip's mean frame:
      the top-50 % salient pixels against the bottom-10 % build 10x10x10 HSV
      histograms, each pixel takes the foreground posterior of its bin, which
-     is blurred, normalised and binarised at the top beta fraction;
+     is blurred, normalised and binarised at the top beta fraction
+     (with `tubelet_mask_downsample` d > 1 the per-pair maps run at
+     H/d x W/d from average-pooled differences and mean frame, with the blur
+     rescaled; the clip map stays at full resolution);
   4. mix: videos[perm] * (1 - mask) + videos * mask for the samples that
      `keep` selects;
   5. pool the clip mask and the per-pair masks to the patch grid.
 
 Reference quirks kept: the blur kernel is sized from crop_size=112 (11x11,
 sigma 11/3) whatever the input size, and the hue angle is multiplied by 2*pi
-twice. The selection thresholds are 26-step bisections, as in the JAX
-package, not `topk`: the two differ at ties. The histograms are counts by
+twice. By default the selections are 26-step bisection thresholds, as in
+the JAX package, not `topk`: the two differ at ties. `exact_topk` takes
+the first n pixels of a stable descending sort instead, which is the
+order `lax.top_k` gives (the lower index first among equal values), so
+the port picks the tied pixels JAX picks. The histograms are counts by
 `index_add_` and the posterior lookup a `gather`, where the JAX package
-uses one-hot matmuls because TPU scatters are slow; the counts are integers
-and the lookup a pure gather, so the results are the same. Blurs are
-float32 matrix products (full float32 on the card: TF32 stays off for
-matmuls by default).
+uses one-hot matmuls (or `bincount` with `exact_topk`) because TPU
+scatters are slow; the counts are integers and the lookup a pure gather,
+so the results are the same. Blurs are float32 matrix products (full
+float32 on the card: TF32 stays off for matmuls by default).
 """
 
 from __future__ import annotations
@@ -51,8 +56,10 @@ class FAMEConfig:
     prob_aug: float = 0.5  # per-sample probability of using the mixed clip
     crop_size: int = 112  # sets the blur kernel; the reference default
     patch_size: int = 16  # pooling of the patch-grid masks
-    exact_topk: bool = False  # True (exact top-k selection) is not ported
-    tubelet_mask_downsample: int = 1  # > 1 (the reduced fast mode) is not ported
+    exact_topk: bool = False  # select by stable sort (lax.top_k's order) instead of bisection thresholds
+    # > 1: per-pair masks at H/d x W/d (falls back to 1 where d does not
+    # divide H, W and patch_size)
+    tubelet_mask_downsample: int = 1
 
     @property
     def gauss_size(self) -> int:
@@ -128,8 +135,16 @@ def _color_map(frame: torch.Tensor) -> torch.Tensor:
     return cmap.reshape(frame.shape[0], -1).long()
 
 
+def _mean(x: torch.Tensor, dim: int, keepdim: bool = False) -> torch.Tensor:
+    """The float32 mean over `dim` as XLA computes it: the sum times the
+    reciprocal of the count, which is not always the sum divided by it (at
+    224 x 224 pixels a selected fraction near 0.5 or 0.1 differs in its
+    last bit about every other count, and the bisections compare it)."""
+    return x.sum(dim=dim, keepdim=keepdim, dtype=torch.float32) * (1.0 / x.shape[dim])
+
+
 def _fraction(mask: torch.Tensor) -> torch.Tensor:
-    return mask.sum(dim=-1, keepdim=True, dtype=torch.float32) / mask.shape[-1]
+    return _mean(mask, -1, keepdim=True)
 
 
 def _top_fraction_threshold(x: torch.Tensor, frac: float) -> torch.Tensor:
@@ -176,6 +191,18 @@ def _hist_posterior(cmap: torch.Tensor, w_fg: torch.Tensor, w_bg: torch.Tensor) 
     return ratio.gather(-1, cmap[:, None, :].expand(B, M, P))
 
 
+def _first_n(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Per row of x [R, N], the indices of its n largest values, the lower
+    index first among equal values (`lax.top_k`'s order): the first n of a
+    stable descending sort. Returns [R, n]."""
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices[:, :n]
+
+
+def _chosen(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Boolean [R, N] with the `idx` [R, n] entries of each row set."""
+    return torch.zeros(x.shape, dtype=torch.bool, device=x.device).scatter_(1, idx, True)
+
+
 def _get_seg_multi(masks: torch.Tensor, mean_frame: torch.Tensor, beta: float, cfg: FAMEConfig) -> torch.Tensor:
     """Colour-histogram refinement and top-beta binarisation of M saliency
     maps per sample that share one mean frame. masks [B, M, H, W] in
@@ -183,27 +210,51 @@ def _get_seg_multi(masks: torch.Tensor, mean_frame: torch.Tensor, beta: float, c
     B, M, H, W = masks.shape
     flat = masks.reshape(B * M, H * W)
     cmap = _color_map(mean_frame)
-    w_fg = (flat >= _top_fraction_threshold(flat, 0.5)).reshape(B, M, -1)
-    w_bg = (flat <= _bottom_fraction_threshold(flat, 0.1)).reshape(B, M, -1)
-    refine = _hist_posterior(cmap, w_fg, w_bg).reshape(B * M, H, W)
+    if cfg.exact_topk:
+        w_fg = _chosen(flat, _first_n(flat, int(0.5 * H * W)))
+        w_bg = _chosen(flat, _first_n(-flat, int(0.1 * H * W)))
+    else:
+        w_fg = flat >= _top_fraction_threshold(flat, 0.5)
+        w_bg = flat <= _bottom_fraction_threshold(flat, 0.1)
+    refine = _hist_posterior(cmap, w_fg.reshape(B, M, -1), w_bg.reshape(B, M, -1)).reshape(B * M, H, W)
     refine = _minmax_norm(_gaussian_blur(refine, cfg.gauss_size, cfg.gauss_sigma)).reshape(B * M, -1)
-    return (refine >= _top_fraction_threshold(refine, beta)).float().reshape(B, M, H, W)
+    if cfg.exact_topk:
+        seg = _chosen(refine, _first_n(refine, int(beta * H * W)))
+    else:
+        seg = refine >= _top_fraction_threshold(refine, beta)
+    return seg.float().reshape(B, M, H, W)
+
+
+def _downsample(x: torch.Tensor, d: int) -> torch.Tensor:
+    """Average-pool [B, H, W] or [B, H, W, C] by d along H and W."""
+    B, H, W = x.shape[:3]
+    return x.reshape(B, H // d, d, W // d, d, *x.shape[3:]).mean(dim=(2, 4))
 
 
 def compute_fame_masks(video: torch.Tensor, cfg: FAMEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(clip mask [B, H, W], per-pair masks [B, T/2, H, W]) of the
-    denormalised clips [B, T, H, W, C] in float32."""
-    if cfg.exact_topk or cfg.tubelet_mask_downsample != 1:
-        raise NotImplementedError("FAME's exact_topk and downsampled modes are not ported")
+    """(clip mask [B, H, W], per-pair masks [B, T/2, H/d, W/d]) of the
+    denormalised clips [B, T, H, W, C] in float32, d the
+    `tubelet_mask_downsample` that divides H, W and the patch size, else 1
+    (`devias_tpu/aug/fame.py:349-386`)."""
     B, T, H, W, C = video.shape
-    mean_frame = video.mean(dim=1)
+    mean_frame = _mean(video, 1)
     pairs = video.reshape(B, T // 2, 2, H, W, C)
     diffs = (pairs[:, :, 0] - pairs[:, :, 1]).abs().sum(dim=-1)
-    clip_diff = (video[:, :-1] - video[:, 1:]).abs().sum(dim=-1).mean(dim=1)
-    sal = torch.cat([clip_diff[:, None], diffs], dim=1).reshape(B * (1 + T // 2), H, W)
-    sal = _minmax_norm(_gaussian_blur(sal, cfg.gauss_size, cfg.gauss_sigma)).reshape(B, 1 + T // 2, H, W)
-    seg = _get_seg_multi(sal, mean_frame, cfg.beta, cfg)
-    return seg[:, 0], seg[:, 1:]
+    clip_diff = _mean((video[:, :-1] - video[:, 1:]).abs().sum(dim=-1), 1)
+    d = cfg.tubelet_mask_downsample
+    if H % d or W % d or cfg.patch_size % d:
+        d = 1
+    if d == 1:
+        sal = torch.cat([clip_diff[:, None], diffs], dim=1).reshape(B * (1 + T // 2), H, W)
+        sal = _minmax_norm(_gaussian_blur(sal, cfg.gauss_size, cfg.gauss_sigma)).reshape(B, 1 + T // 2, H, W)
+        seg = _get_seg_multi(sal, mean_frame, cfg.beta, cfg)
+        return seg[:, 0], seg[:, 1:]
+    sal = _minmax_norm(_gaussian_blur(clip_diff, cfg.gauss_size, cfg.gauss_sigma))
+    mask = _get_seg_multi(sal[:, None], mean_frame, cfg.beta, cfg)[:, 0]
+    gs = max(cfg.gauss_size // d // 2 * 2 + 1, 3)
+    small = _minmax_norm(_gaussian_blur(_downsample(diffs.reshape(B * (T // 2), H, W), d), gs, gs / 3.0))
+    per_pair = _get_seg_multi(small.reshape(B, T // 2, H // d, W // d), _downsample(mean_frame, d), cfg.beta, cfg)
+    return mask, per_pair
 
 
 def _pool_to_patches(m: torch.Tensor, patch: int) -> torch.Tensor:
@@ -245,7 +296,8 @@ def _fame_core(videos: torch.Tensor, cfg: FAMEConfig, generator: Optional[torch.
 
     B = videos.shape[0]
     fg_mask = _pool_to_patches(mask, cfg.patch_size).reshape(B, -1)
-    fg_pf = _pool_to_patches(per_pair, cfg.patch_size).reshape(B, -1)
+    # per-pair masks at reduced resolution pool by the scaled patch size
+    fg_pf = _pool_to_patches(per_pair, cfg.patch_size * per_pair.shape[-1] // videos.shape[3]).reshape(B, -1)
     return videos_out, fg_mask, fg_pf, perm, keep
 
 

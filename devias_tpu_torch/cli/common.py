@@ -172,9 +172,6 @@ def reject_unported(args) -> None:
         (getattr(args, "zero1", False), f"--zero1: {item17}"),
         (getattr(args, "fsdp", False), f"--fsdp: {item17}"),
         (getattr(args, "mask_model", "") == "Segformer", "--mask_model Segformer: ROADMAP.md queue 1, item 16"),
-        (getattr(args, "teacher_int8", False), "--teacher_int8 (nn/quant.py): ROADMAP.md queue 1, item 15"),
-        (getattr(args, "use_checkpoint", False),
-         "--use_checkpoint (activation checkpointing): ROADMAP.md queue 1, item 10a"),
     )
     for hit, what in checks:
         if hit:

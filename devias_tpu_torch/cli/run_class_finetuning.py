@@ -88,7 +88,7 @@ def build_class_model(args, device: torch.device, dtype: torch.dtype = torch.bfl
         num_classes=args.nb_classes, tubelet_size=args.tubelet_size, fc_drop_rate=args.fc_drop_rate,
         drop_rate=args.drop, drop_path_rate=args.drop_path, attn_drop_rate=args.attn_drop_rate,
         init_scale=args.init_scale, use_mean_pooling=not args.use_cls, input_norm=args.device_normalize,
-        fused_attention=attention_kernel_for(args, device), dtype=dtype,
+        fused_attention=attention_kernel_for(args, device), remat=args.use_checkpoint, dtype=dtype,
     )
 
 

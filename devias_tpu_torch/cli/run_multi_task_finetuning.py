@@ -98,7 +98,7 @@ def build_models(args, device: torch.device, dtype: torch.dtype = torch.bfloat16
         fc_drop_rate=args.fc_drop_rate, drop_rate=args.drop, drop_path_rate=args.drop_path,
         attn_drop_rate=args.attn_drop_rate, init_scale=args.init_scale, unified_head=args.unified_head,
         img_size=args.input_size, num_frames=args.num_frames, input_norm=args.device_normalize,
-        fused_attention=fused, dtype=dtype,
+        fused_attention=fused, remat=args.use_checkpoint, dtype=dtype,
     )
     teacher = create_model(
         "vit_base_patch16_224", device=device, seed=args.seed + 1, **tiny,

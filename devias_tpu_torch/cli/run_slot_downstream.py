@@ -88,7 +88,7 @@ def build_fusion_model(args, device: torch.device, dtype: torch.dtype = torch.bf
         attn_drop_rate=args.attn_drop_rate, init_scale=args.init_scale, num_latents=args.num_latents,
         agg_depth=args.agg_depth, agg_weights_tie=args.agg_weights_tie, slot_fusion_method=args.slot_fusion_method,
         head_type=args.head_type, use_input_ln=args.use_input_ln, input_norm=args.device_normalize,
-        fused_attention=attention_kernel_for(args, device), dtype=dtype,
+        fused_attention=attention_kernel_for(args, device), remat=args.use_checkpoint, dtype=dtype,
     )
 
 

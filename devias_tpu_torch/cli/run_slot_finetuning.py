@@ -95,14 +95,17 @@ def get_args(argv=None):
     parser.add_argument("--scuba_val", action="store_true")
     parser.add_argument("--eval_scene", action="store_true")
     parser.add_argument("--teacher_int8", action="store_true", default=False,
-                        help="w8a8 int8 teacher GEMMs (not ported yet)")
+                        help="w8a8 int8 GEMMs in the frozen scene teacher's blocks (nn/quant.py); "
+                             "not the parity path: it perturbs the teacher's logits, and on an H100 "
+                             "the teacher runs slower than in bf16 (PERF.md)")
     parser.set_defaults(model="slot_vit_base_patch16_224")
     return parser.parse_args(argv)
 
 
 def build_models(args, device: torch.device, dtype: torch.dtype = torch.bfloat16):
-    """The student (`--model`) and the frozen CLS scene teacher
-    (`vit_base_patch16_224`, ref run_slot_finetuning.py:392-406), with
+    """The student (`--model`, checkpointed with --use_checkpoint) and the
+    frozen CLS scene teacher (`vit_base_patch16_224`, ref
+    run_slot_finetuning.py:392-406; w8a8 with --teacher_int8), with
     `--smoke_tiny`'s overrides, weights from `--seed` and `--seed + 1`,
     on `device`; K1 where `use_attention_kernel` allows it, its plain
     version elsewhere (logged once)."""
@@ -115,12 +118,12 @@ def build_models(args, device: torch.device, dtype: torch.dtype = torch.bfloat16
         drop_path_rate=args.drop_path, attn_drop_rate=args.attn_drop_rate, init_scale=args.init_scale,
         num_latents=args.num_latents, head_type=args.head_type, slot_matching_method=args.slot_matching_method,
         agg_weights_tie=args.agg_weights_tie, agg_depth=args.agg_depth, input_norm=args.device_normalize,
-        fused_attention=fused, dtype=dtype,
+        remat=args.use_checkpoint, fused_attention=fused, dtype=dtype,
     )
     teacher = create_model(
         "vit_base_patch16_224", device=device, seed=args.seed + 1, **tiny,
         num_classes=365, tubelet_size=args.tubelet_size, use_mean_pooling=False,
-        input_norm=args.device_normalize, fused_attention=fused, dtype=dtype,
+        input_norm=args.device_normalize, int8_dense=args.teacher_int8, fused_attention=fused, dtype=dtype,
     )
     return model, teacher
 

@@ -87,7 +87,7 @@ def build_hvu_model(args, device: torch.device, num_action: int = HVU_NUM_ACTION
         img_size=args.input_size, fc_drop_rate=args.fc_drop_rate, drop_rate=args.drop,
         drop_path_rate=args.drop_path, attn_drop_rate=args.attn_drop_rate, init_scale=args.init_scale,
         num_latents=args.num_latents, head_type=args.head_type, slot_matching_method=args.slot_matching_method,
-        agg_weights_tie=args.agg_weights_tie, agg_depth=args.agg_depth,
+        agg_weights_tie=args.agg_weights_tie, agg_depth=args.agg_depth, remat=args.use_checkpoint,
         fused_attention=attention_kernel_for(args, device), dtype=dtype,
     )
 

@@ -13,7 +13,9 @@ reference layout. Outputs are dicts of tensors with the JAX package's
 keys. In `train()` mode `fc_drop_rate` dropout applies to what feeds the
 head (the slots, the CLS, scene or pooled token), with the backbone's
 dropout and drop-path; `forward` takes the `torch.Generator` they draw
-from.
+from. Every model takes the backbone's `remat` (activation
+checkpointing); the plain ViT, the frozen scene teacher, also takes
+`int8_dense` (w8a8 frozen inference).
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ def select_slots_by_head(slots: torch.Tensor, slots_head: torch.Tensor, num_clas
 def _backbone_kwargs(kw: dict) -> dict:
     keys = ("embed_dim", "depth", "num_heads", "drop_rate", "attn_drop_rate", "drop_path_rate",
             "tubelet_size", "use_learnable_pos_emb", "img_size", "num_frames", "fused_attention", "exact_gelu",
-            "patch_embed_mode", "input_norm", "dtype")
+            "patch_embed_mode", "input_norm", "remat", "int8_dense", "dtype")
     return {k: kw[k] for k in keys if k in kw}
 
 
@@ -74,7 +76,7 @@ class SlotViT(VideoViT):
                  num_latents: int = 2, agg_depth: int = 4, agg_weights_tie: bool = True,
                  slot_matching_method: str = "matching", head_type: str = "linear",
                  fused_attention: bool = False, exact_gelu: bool = False,
-                 patch_embed_mode: Optional[str] = None, input_norm: bool = False,
+                 patch_embed_mode: Optional[str] = None, input_norm: bool = False, remat: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__(**_backbone_kwargs(locals()))
         if slot_matching_method not in ("matching", "hard_select"):
@@ -134,8 +136,8 @@ class PlainViT(VideoViT):
                  drop_path_rate: float = 0.0, fc_drop_rate: float = 0.0, init_scale: float = 0.001,
                  tubelet_size: int = 2, use_mean_pooling: bool = True,
                  fused_attention: bool = False, exact_gelu: bool = False,
-                 patch_embed_mode: Optional[str] = None, input_norm: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 patch_embed_mode: Optional[str] = None, input_norm: bool = False, remat: bool = False,
+                 int8_dense: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__(use_cls_token=not use_mean_pooling, final_norm=not use_mean_pooling,
                          **_backbone_kwargs(locals()))
         self.fc_drop_rate = fc_drop_rate
@@ -165,7 +167,7 @@ class MultiTaskViT(VideoViT):
                  tubelet_size: int = 2, unified_head: bool = False, use_learnable_pos_emb: bool = False,
                  img_size: int = 224, num_frames: int = 16, fused_attention: bool = False,
                  exact_gelu: bool = False, patch_embed_mode: Optional[str] = None, input_norm: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__(use_cls_token=True, num_extra_suffix_tokens=1, **_backbone_kwargs(locals()))
         self.fc_drop_rate = fc_drop_rate
         self.unified_head = unified_head
@@ -204,7 +206,7 @@ class SlotFusionViT(VideoViT):
                  init_scale: float = 0.001, tubelet_size: int = 2, num_latents: int = 2, agg_depth: int = 8,
                  agg_weights_tie: bool = True, slot_fusion_method: str = "concat", head_type: str = "mlp",
                  use_input_ln: bool = False, fused_attention: bool = False, exact_gelu: bool = False,
-                 patch_embed_mode: Optional[str] = None, input_norm: bool = False,
+                 patch_embed_mode: Optional[str] = None, input_norm: bool = False, remat: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__(**_backbone_kwargs(locals()))
         if slot_fusion_method not in ("concat", "gap"):

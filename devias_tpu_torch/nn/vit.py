@@ -8,12 +8,16 @@ follows the reference key layout (`patch_embed.proj.weight`,
 takes what `ckpt/from_jax.py` produces.
 
 Training mode (`module.train()`) enables dropout after the position
-embedding, after `proj` and after `fc2`, and drop-path in timm semantics
-(a per-sample Bernoulli keep scaled by 1/keep, rates rising linearly over
-the blocks). Dropout draws from the `torch.Generator` passed to `forward`,
-drop-path from `path_generator` when one is given (sequence parallelism
-shares it across token shards) and from the same generator otherwise; in
-`eval()` or at rate 0 they are no-ops. Given `seq` (a
+embedding, on the attention probabilities, after `proj` and after `fc2`,
+and drop-path in timm semantics (a per-sample Bernoulli keep scaled by
+1/keep, rates rising linearly over the blocks). Dropout draws from the
+`torch.Generator` passed to `forward`, drop-path from `path_generator`
+when one is given (sequence parallelism shares it across token shards)
+and from the same generator otherwise; in `eval()` or at rate 0 they are
+no-ops. `remat` recomputes each block's activations in the backward
+(`torch.utils.checkpoint`) with the same draws; `int8_dense` runs the
+blocks' four dense layers as w8a8 int8 products (`nn/quant.py`, frozen
+inference only). Given `seq` (a
 `core/dist.py::SPMesh`), the backbone runs sequence-parallel on this
 rank's frames: attention gathers K/V over the seq group
 (`devias_tpu/nn/vit.py:225-249`). Gradients reach the float32 master
@@ -24,11 +28,13 @@ hand-written VJP (which exists to save TPU memory).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from devias_tpu_torch.core.dist import SPMesh, gather_kv
@@ -38,6 +44,7 @@ from devias_tpu_torch.kernels.attention import (
     fused_attention_q_kv,
     fused_attention_qkv,
 )
+from devias_tpu_torch.nn.quant import int8_dot_quantized, quantize
 
 PATCH_SIZE = 16
 NORM_EPS = 1e-6
@@ -109,18 +116,38 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 class Linear(nn.Linear):
     """nn.Linear whose float32 weights are cast to the input's dtype at use
     (flax `nn.Dense(dtype=...)` semantics). `init_std` is the truncated
-    normal's std; biases start at zero."""
+    normal's std; biases start at zero. `int8_dense` computes the product
+    with `int8_dot_quantized` and adds the bias in float32 before the cast
+    to the input's dtype (`devias_tpu/nn/quant.py::Int8Dense`). That
+    weight is frozen, so it is quantised once, and again only when its
+    storage or version changes (a load, a move, an in-place update); JAX
+    quantises it in every call, to the same values."""
 
-    def __init__(self, in_features: int, out_features: int, bias: bool = True, init_std: float = 0.02):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, init_std: float = 0.02,
+                 int8_dense: bool = False):
         super().__init__(in_features, out_features, bias=bias)
         self.init_std = init_std
+        self.int8_dense = int8_dense
+        self._int8_weight = None  # (the weight it came from, that weight's version, (wq, sw))
 
     def init_own_params(self, generator: torch.Generator) -> None:
         trunc_normal_(self.weight, self.init_std, generator)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
+    def _quantized_weight(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        # the detached weight shares the parameter's storage and version
+        # counter; holding it keeps that storage from being reused
+        w = self.weight.detach()
+        held = self._int8_weight
+        if held is None or held[0].data_ptr() != w.data_ptr() or held[1] != w._version:
+            held = self._int8_weight = (w, w._version, quantize(w.float(), 1))
+        return held[2]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.int8_dense:
+            y = int8_dot_quantized(x, *self._quantized_weight())
+            return (y if self.bias is None else y.add_(self.bias)).to(x.dtype)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), bias)
 
@@ -153,11 +180,11 @@ class Mlp(nn.Module):
     bf16 and exact erf otherwise; `gelu_approx` True/False overrides."""
 
     def __init__(self, dim: int, hidden_dim: int, gelu_approx: Optional[bool] = None,
-                 dtype: torch.dtype = torch.float32, drop: float = 0.0):
+                 dtype: torch.dtype = torch.float32, drop: float = 0.0, int8_dense: bool = False):
         super().__init__()
         self.drop = drop
-        self.fc1 = Linear(dim, hidden_dim)
-        self.fc2 = Linear(hidden_dim, dim)
+        self.fc1 = Linear(dim, hidden_dim, int8_dense=int8_dense)
+        self.fc2 = Linear(hidden_dim, dim, int8_dense=int8_dense)
         self.approx = dtype == torch.bfloat16 if gelu_approx is None else gelu_approx
         self.dtype = dtype
 
@@ -167,17 +194,33 @@ class Mlp(nn.Module):
         return dropout(self.fc2(x), self.drop, self.training, generator)
 
 
+def _attention_with_dropout(qkv: torch.Tensor, num_heads: int, scale: float, rate: float,
+                            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The JAX package's unfused training attention with probability
+    dropout (`devias_tpu/nn/vit.py:261-266`): q scaled, q k^T and the
+    softmax's input in qkv's dtype, the softmax in float32 cast back,
+    dropout on the probabilities, then the product with v."""
+    B, N, C3 = qkv.shape
+    q, k, v = qkv.reshape(B, N, 3, num_heads, C3 // (3 * num_heads)).unbind(2)
+    attn = torch.einsum("bnhd,bmhd->bhnm", q * scale, k)
+    attn = dropout(attn.float().softmax(dim=-1).to(qkv.dtype), rate, True, generator)
+    return torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(B, N, C3 // 3)
+
+
 class Attention(nn.Module):
     """Multi-head self-attention with one qkv weight, learnable q and v
     biases and a zero k bias. `fused=True` calls K1 on the [B, N, 3C]
     projection with no head transposes; otherwise the plain einsum path.
     Given `seq`, q stays local and k | v is gathered over the seq group:
     K2 when fused, the plain einsum against the gathered kv otherwise.
-    Attention-probability dropout in training is not ported and raises, and
-    under sequence parallelism at any rate > 0, as the JAX package does."""
+    In training with `attn_drop > 0` the attention is the plain one with
+    dropout on its probabilities, the JAX package's own dispatch (its
+    kernel takes only `attn_drop == 0`); in eval, where that dropout is
+    the identity, K1 stays on when fused. Under sequence parallelism any
+    rate > 0 raises, as in the JAX package."""
 
     def __init__(self, dim: int, num_heads: int, fused: bool = False, dtype: torch.dtype = torch.float32,
-                 attn_drop: float = 0.0, proj_drop: float = 0.0):
+                 attn_drop: float = 0.0, proj_drop: float = 0.0, int8_dense: bool = False):
         super().__init__()
         self.attn_drop = attn_drop
         self.proj_drop = proj_drop
@@ -185,10 +228,10 @@ class Attention(nn.Module):
         self.scale = (dim // num_heads) ** -0.5
         self.fused = fused
         self.dtype = dtype
-        self.qkv = Linear(dim, 3 * dim, bias=False)
+        self.qkv = Linear(dim, 3 * dim, bias=False, int8_dense=int8_dense)
         self.q_bias = nn.Parameter(torch.zeros(dim))
         self.v_bias = nn.Parameter(torch.zeros(dim))
-        self.proj = Linear(dim, dim)
+        self.proj = Linear(dim, dim, int8_dense=int8_dense)
 
     def init_own_params(self, generator: torch.Generator) -> None:
         nn.init.zeros_(self.q_bias)
@@ -206,9 +249,10 @@ class Attention(nn.Module):
             out = attend(qkv[..., :C].contiguous(), gather_kv(qkv[..., C:], seq), self.num_heads, self.scale)
             return dropout(self.proj(out), self.proj_drop, self.training, generator)
         if self.training and self.attn_drop > 0.0:
-            raise NotImplementedError("attention-probability dropout (attn_drop_rate > 0) is not ported")
-        attend = fused_attention_qkv if self.fused else attention_qkv_reference
-        out = attend(qkv, self.num_heads, self.scale)
+            out = _attention_with_dropout(qkv, self.num_heads, self.scale, self.attn_drop, generator)
+        else:
+            attend = fused_attention_qkv if self.fused else attention_qkv_reference
+            out = attend(qkv, self.num_heads, self.scale)
         return dropout(self.proj(out), self.proj_drop, self.training, generator)
 
 
@@ -217,13 +261,13 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, fused_attention: bool = False, exact_gelu: bool = False,
                  dtype: torch.dtype = torch.float32, drop: float = 0.0, attn_drop: float = 0.0,
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, int8_dense: bool = False):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.norm1 = FastLayerNorm(dim, dtype)
-        self.attn = Attention(dim, num_heads, fused_attention, dtype, attn_drop, drop)
+        self.attn = Attention(dim, num_heads, fused_attention, dtype, attn_drop, drop, int8_dense)
         self.norm2 = FastLayerNorm(dim, dtype)
-        self.mlp = Mlp(dim, MLP_RATIO * dim, False if exact_gelu else None, dtype, drop)
+        self.mlp = Mlp(dim, MLP_RATIO * dim, False if exact_gelu else None, dtype, drop, int8_dense)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 path_generator: Optional[torch.Generator] = None, seq: Optional[SPMesh] = None) -> torch.Tensor:
@@ -232,6 +276,45 @@ class Block(nn.Module):
         x = x + drop_path(y, self.drop_path_rate, self.training, path_generator)
         y = self.mlp(self.norm2(x), generator)
         return x + drop_path(y, self.drop_path_rate, self.training, path_generator)
+
+
+class _ReplayGenerators:
+    """The context of a checkpointed block's recompute: on entry each
+    generator is set to its state from before the block's forward, on exit
+    it gets back the state it had on entry. Reusable, for a second
+    backward."""
+
+    def __init__(self, gens, states):
+        self.gens, self.states = gens, states
+
+    def __enter__(self):
+        self.now = [g.get_state() for g in self.gens]
+        for g, state in zip(self.gens, self.states):
+            g.set_state(state)
+
+    def __exit__(self, *exc):
+        for g, state in zip(self.gens, self.now):
+            g.set_state(state)
+
+
+def checkpointed_block(block: Block, x: torch.Tensor, generator: Optional[torch.Generator],
+                       path_generator: Optional[torch.Generator], seq: Optional[SPMesh]) -> torch.Tensor:
+    """`block(x, ...)` under `torch.utils.checkpoint` (non-reentrant): the
+    block's activations are dropped after the forward and recomputed in the
+    backward, the JAX package's `nn.remat` of each block
+    (`devias_tpu/nn/vit.py:556-560`).
+
+    The block draws dropout and drop-path from explicit generators, whose
+    states `preserve_rng_state` does not save. So each generator's state is
+    taken here, before the forward, and the recompute runs under
+    `_ReplayGenerators`: it draws the forward's masks, and later draws are
+    where they would be without checkpointing (as remat replays the same
+    keys). Its exit also runs when autograd stops a recompute early."""
+    gens = list({id(g): g for g in (generator, path_generator) if g is not None}.values())
+    replay = _ReplayGenerators(gens, [g.get_state() for g in gens])
+    return torch.utils.checkpoint.checkpoint(block, x, generator, path_generator, seq, use_reentrant=False,
+                                             preserve_rng_state=False,
+                                             context_fn=lambda: (contextlib.nullcontext(), replay))
 
 
 def patchify_video(x: torch.Tensor, tubelet: int = 2, patch: int = PATCH_SIZE) -> torch.Tensor:
@@ -294,6 +377,9 @@ class VideoViT(nn.Module):
     `input_norm` applies the ImageNet normalisation on the device (uint8 or
     [0, 1] clips). Block i's drop-path rate is linspace(0, drop_path_rate,
     depth)[i]; `drop_rate` also applies after the position embedding.
+    `remat` (each block checkpointed while grad is enabled,
+    `checkpointed_block`) and `int8_dense` (frozen inference) are the JAX
+    fields of the same names.
     `forward_features(..., seq=mesh)` is the sequence-parallel backbone:
     this rank's frames, this rank's slice of the full sinusoid table, the
     final norm on the local tokens (`core/dist.py::seq_parallel_tokens`
@@ -305,10 +391,11 @@ class VideoViT(nn.Module):
                  tubelet_size: int = 2, use_cls_token: bool = False, num_extra_suffix_tokens: int = 0,
                  use_learnable_pos_emb: bool = False, img_size: int = 224, num_frames: int = 16,
                  final_norm: bool = True, fused_attention: bool = False, exact_gelu: bool = False,
-                 patch_embed_mode: Optional[str] = None, input_norm: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 patch_embed_mode: Optional[str] = None, input_norm: bool = False, remat: bool = False,
+                 int8_dense: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.embed_dim = embed_dim
+        self.remat = remat
         self.input_norm = input_norm
         self.dtype = dtype
         self.drop_rate = drop_rate
@@ -321,7 +408,8 @@ class VideoViT(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, n_tokens, embed_dim)) if use_learnable_pos_emb else None
         dpr = np.linspace(0.0, drop_path_rate, depth)
         self.blocks = nn.ModuleList([
-            Block(embed_dim, num_heads, fused_attention, exact_gelu, dtype, drop_rate, attn_drop_rate, float(dpr[i]))
+            Block(embed_dim, num_heads, fused_attention, exact_gelu, dtype, drop_rate, attn_drop_rate, float(dpr[i]),
+                  int8_dense)
             for i in range(depth)])
         self.norm = FastLayerNorm(embed_dim, dtype) if final_norm else None
         self._pos_cache: Dict[Tuple[int, torch.device], torch.Tensor] = {}
@@ -373,8 +461,12 @@ class VideoViT(nn.Module):
             else:
                 pos = self._pos(x.shape[1], x.device)[None]
         x = dropout(x + pos, self.drop_rate, self.training, generator)
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x, generator, path_generator, seq)
+            if remat:
+                x = checkpointed_block(blk, x, generator, path_generator, seq)
+            else:
+                x = blk(x, generator, path_generator, seq)
         if self.norm is not None:
             x = self.norm(x)
         return x

@@ -57,10 +57,48 @@ def test_flag_parity():
 
 
 @pytest.mark.parametrize("flags", [["--pp_stages", "2"], ["--tp_size", "2"], ["--zero1"], ["--fsdp"],
-                                   ["--mask_model", "Segformer"], ["--teacher_int8"], ["--use_checkpoint"]])
+                                   ["--mask_model", "Segformer"]])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli.main(cli.get_args(BASE + ["--device", "cpu"] + flags))
+
+
+def _train_with(flag, filelists, out):
+    """The tiny CPU train run (one epoch of 2 steps with FAME) with `flag`,
+    which must train and write its result files; returns the student and
+    the teacher it built."""
+    built = []
+    build = cli.build_models
+
+    def keep(*a, **k):
+        built.extend(build(*a, **k))
+        return built[-2:]
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(cli, "build_models", keep)
+        result = cli.main(cli.get_args(BASE + ["--device", "cpu", "--data_path", filelists, "--epochs", "1",
+                                               "--max_steps_per_epoch", "2", "--mask_model", "FAME",
+                                               "--output_dir", out, flag]))
+    with open(os.path.join(out, "log.txt")) as f:
+        records = [json.loads(line) for line in f]
+    assert result["epochs"][0]["n_steps"] == 2 and np.isfinite(records[0]["train_loss"])
+    assert os.listdir(os.path.join(out, "ckpt")) == ["checkpoint-0.pth"]
+    assert os.path.exists(os.path.join(out, "test", "0.txt"))
+    return built
+
+
+def test_use_checkpoint_trains(filelists, tmp_path):
+    """--use_checkpoint (10a): the student's blocks are checkpointed."""
+    model, teacher = _train_with("--use_checkpoint", filelists, str(tmp_path / "out"))
+    assert model.remat and not teacher.remat
+
+
+def test_teacher_int8_trains(filelists, tmp_path):
+    """--teacher_int8 (15): the scene teacher's four dense layers per block
+    run w8a8; the student's do not."""
+    model, teacher = _train_with("--teacher_int8", filelists, str(tmp_path / "out"))
+    assert teacher.blocks[0].attn.qkv.int8_dense and teacher.blocks[1].mlp.fc2.int8_dense
+    assert not model.blocks[0].attn.qkv.int8_dense
 
 
 @pytest.mark.parametrize("device,embed_dim,num_heads,want", [

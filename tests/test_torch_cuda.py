@@ -505,3 +505,49 @@ def test_tiny_multi_task_cli_trains_and_evaluates_on_the_card(card, tmp_path):
     assert np.isfinite(result["final_top1"]) and _finite_records(tmp_path / "out" / "log.txt")
     assert again["eval"]["top1"] == result["final_top1"]
     assert np.isfinite(list(again["eval_scene"].values())).all()
+
+
+def test_checkpointed_block_gradients_equal_the_plain_blocks(card):
+    """K1 through a ViT-B block (bf16, B=2, N=1568) with dropout and
+    drop-path at 0.1 from a card generator: under `checkpointed_block` the
+    input and parameter gradients equal those without checkpointing
+    bitwise, and so does the generator's state after the step; the stats
+    forward runs twice (the forward and the recompute), the backward once."""
+    from devias_tpu_torch.nn.vit import Block, checkpointed_block, init_weights
+
+    block = Block(768, 12, fused_attention=True, dtype=torch.bfloat16, drop=0.1, drop_path_rate=0.1)
+    init_weights(block, torch.Generator().manual_seed(0))
+    block = block.to(card).train()
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 1568, 768)).astype(np.float32)).to(card)
+    w = torch.from_numpy(np.random.default_rng(2).normal(size=(2, 1568, 768)).astype(np.float32)).to(card)
+    runs = {}
+    for remat in (False, True):
+        block.zero_grad()
+        attention_qkv_fwd_stats.launches = attention_qkv_bwd.launches = 0
+        g = torch.Generator(device=card).manual_seed(3)
+        xb = x.to(torch.bfloat16).requires_grad_()
+        y = checkpointed_block(block, xb, g, None, None) if remat else block(xb, g)
+        (y.float() * w).sum().backward()
+        torch.cuda.synchronize()
+        runs[remat] = (xb.grad.clone(), {n: p.grad.clone() for n, p in block.named_parameters()}, g.get_state(),
+                       (attention_qkv_fwd_stats.launches, attention_qkv_bwd.launches))
+    (gx, grads, state, launches), (gx_r, grads_r, state_r, launches_r) = runs[False], runs[True]
+    assert launches == (1, 1) and launches_r == (2, 1)
+    assert torch.equal(gx, gx_r) and torch.equal(state, state_r)
+    for name, grad in grads.items():
+        assert torch.equal(grads_r[name], grad), name
+
+
+def test_int8_dot_on_the_card_equals_the_cpu(card):
+    """`int8_dot` at the teacher's qkv shape for 2 clips (3138 x 768 x
+    2304): the int32 products are exact on both, so the card's result is
+    the CPU's within 1e-6 relative (bitwise expected)."""
+    from devias_tpu_torch.nn.quant import int8_dot
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(2, 1569, 768)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rng.normal(size=(2304, 768)) * 0.02).astype(np.float32))
+    want = int8_dot(x, w)
+    got = int8_dot(x.to(card), w.to(card)).cpu()
+    assert got.shape == want.shape == (2, 1569, 2304)
+    assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()

@@ -125,8 +125,11 @@ def test_draws_come_from_the_generator():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     with pytest.raises(ValueError, match="Generator"):
         tfame.fame_augment(x, labels)
-    with pytest.raises(NotImplementedError):
-        tfame.fame_augment(x, labels, tfame.FAMEConfig(exact_topk=True), generator=g)
+    exact = tfame.FAMEConfig(exact_topk=True)
+    a = tfame.fame_augment(x, labels, exact, generator=torch.Generator().manual_seed(5))
+    b = tfame.fame_augment(x, labels, exact, generator=torch.Generator().manual_seed(5))
+    for got, want in ((a[0], b[0]), (a[2][0], b[2][0]), (a[2][1], b[2][1])):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_i420_to_rgb_matches():
