@@ -167,6 +167,28 @@ prints one JSON line, and the first failure exits non-zero:
    --drop_path 0.1`, a 2-step epoch, validation, the final test, then
    `--eval` on its checkpoint (K1: 12 K1-fwd, 24 stats and 12 bwd per step).
 
+24. real_video_cli: mp4 files written with cv2 (12 train, 4 val, 4 test,
+   64 frames of 240x320 each), then `run_slot_finetuning` on them at full
+   width: one step of 24 clips, validation, the final test. It prints the
+   reader (the C++ FFmpeg decode core where `pkg-config` resolves FFmpeg,
+   else cv2) and whether the C++ augment core ran, counts the readers the
+   pipeline opened and the calls that reached the core (K1: 36 K1-fwd, 12
+   stats, 12 bwd).
+25. loader_split: the CLI's host pipeline on those files, ms per sample by
+   stage (decode, RandAugment with the augment core on and off, crop and
+   normalize, random erasing, collate, the pinned copy), and the training
+   loader's clips/s with the core on and off beside the direct step's.
+26. segformer_train: the slot step with the Segformer mix in place of FAME
+   (`segformer_apply`: the B3 geometry in bfloat16 on random weights, its
+   person bias raised to cover about 30 % of the pixels): the mask model's
+   ms, coverage and bf16-vs-f32 mask agreement, counted steps (12 K1-fwd,
+   12 stats, 12 bwd each), timed ones, a profile, segformer_vs_plain.
+27. segformer_cli: `run_slot_finetuning --mask_model Segformer
+   --segformer_variant b0 --segformer_ckpt` an HF-layout .pth the phase
+   writes, a 2-step epoch and `--eval`; then convert: that checkpoint
+   through `convert_checkpoint to_reference` and `to_port`, bitwise, and
+   `--eval` on the result with the same top-1.
+
 Then a `script` line with the script's own seconds, one
 `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 Exits non-zero, printing no result, without CUDA or without the port.
@@ -1750,17 +1772,32 @@ def _held(row: dict, loss_f: float, loss_p: float, grads_f: dict, grads_p: dict)
 def _fused_vs_plain(build, loss_of, watch):
     """(loss, watched gradients) of one micro-batch through `build(fused)`'s
     model in train mode, for fused and plain attention on the same weights,
-    the same draws and a generator in the same state."""
+    the same draws and a generator in the same state; `watch` None: every
+    parameter that has a gradient."""
     out = {}
     for fused in (True, False):
         model = build(fused).train()
         total = loss_of(model, torch.Generator(device="cuda").manual_seed(3))
         total.backward()
         params = dict(model.named_parameters())
-        out[fused] = (total.item(), {n: params[n].grad.float().clone() for n in watch})
+        out[fused] = (total.item(), {n: p.grad.float().clone() for n, p in params.items()
+                                     if (watch is None or n in watch) and p.grad is not None})
         del model, total, params
         torch.cuda.empty_cache()
     return out[True], out[False]
+
+
+def _group_errors(grads_f: dict, grads_p: dict) -> dict:
+    """The fused-vs-plain gradient error by parameter group (each block,
+    else the top-level module): the group's largest absolute error, its
+    plain gradients' largest magnitude and their ratio."""
+    groups = {}
+    for n, gp in grads_p.items():
+        parts = n.split(".")
+        g = ".".join(parts[:2]) if parts[0] == "blocks" else parts[0]
+        err, ref = groups.get(g, (0.0, 0.0))
+        groups[g] = (max(err, (grads_f[n] - gp).abs().max().item()), max(ref, gp.abs().max().item()))
+    return {g: {"max_abs_err": e, "max_abs_plain": r, "share": e / r if r else None} for g, (e, r) in groups.items()}
 
 
 def phase_hvu_train(attn, card):
@@ -2130,9 +2167,12 @@ def phase_downstream_train(attn, card):
     TRAIN_STEPS counted steps (12 K1-fwd stats and 12 K1-bwd per step),
     CLASS_WINDOW timed ones; then downstream_vs_plain, one micro-batch of
     2 clips through fused and plain attention, held as train_vs_plain holds
-    the slot step. Returns the K1 counts and ms per step."""
+    the slot step, with the gradient error of every parameter group and
+    the slots `select_slots_by_head` picks in each run. Returns the K1
+    counts and ms per step."""
     from devias_tpu_torch.cli import run_slot_downstream as ds_cli
     from devias_tpu_torch.cli.common import hard_label_criterion
+    from devias_tpu_torch.nn import select_slots_by_head
     from devias_tpu_torch.train import OptimConfig, TrainState, make_classification_train_step, make_optimizer
     from devias_tpu_torch.train.step import classification_loss
 
@@ -2159,15 +2199,28 @@ def phase_downstream_train(attn, card):
     videos = torch.from_numpy(rng.standard_normal((2,) + CLIPS[1:], dtype=np.float32)).to(dev)
     labels = torch.tensor([1, DS_CLASSES - 1], device=dev)
 
+    heads = {}
+
     def build(fused):
         m = ds_cli.build_fusion_model(args, dev) if fused else _plain(ds_cli.build_fusion_model(args, dev))
         m.load_state_dict(sd)
+        # the selection head's input and logits: the slots each run selects
+        m.head.register_forward_hook(lambda mod, inp, o: heads.__setitem__(fused, (inp[0].detach(), o.detach())))
         return m
 
     (loss_f, grads_f), (loss_p, grads_p) = _fused_vs_plain(
-        build, lambda m, g: classification_loss(m, videos, labels, criterion, generator=g)[0], DS_WATCH)
+        build, lambda m, g: classification_loss(m, videos, labels, criterion, generator=g)[0], None)
     row = {"phase": "downstream_vs_plain", "card": card, "clips": 2}
-    ok = _held(row, loss_f, loss_p, grads_f, grads_p)
+    ok = _held(row, loss_f, loss_p, {n: grads_f[n] for n in DS_WATCH}, {n: grads_p[n] for n in DS_WATCH})
+    row["grad_error_by_group"] = _group_errors(grads_f, grads_p)
+    sel = {}
+    for fused, (slots, logits) in heads.items():
+        picked = select_slots_by_head(slots, logits, NUM_CLASSES, NUM_SCENE_CLASSES)
+        # each slot's largest action probability: how near the selection is to a tie
+        sel[fused] = {"action_idx": picked["action_idx"].tolist(), "scene_idx": picked["scene_idx"].tolist(),
+                      "action_max_prob": logits.float().softmax(-1)[..., :NUM_CLASSES].amax(-1).tolist()}
+    row["selection"] = {"fused": sel[True], "plain": sel[False],
+                        "same_slots": all(sel[True][k] == sel[False][k] for k in ("action_idx", "scene_idx"))}
     emit(row)
     if not ok:
         fail("fused and plain downstream steps disagree beyond their limits")
@@ -2602,6 +2655,399 @@ def phase_options_cli(attn, card):
                       {"K1-fwd": 12 * test_b})
 
 
+# real_video_cli / loader_split: mp4 files (mp4v) written with cv2, as the
+# JAX package's real-video tests write them: smooth textures that move, so
+# the codec compresses them as it does camera video
+REAL_SPLITS = (("train", 12), ("val", 4), ("test", 4))
+REAL_FRAMES, REAL_HW = 64, (240, 320)
+REAL_CLI_FLAGS = ["--model", "slot_vit_base_patch16_224", "--num_latents", "2", "--agg_depth", "8",
+                  "--agg_weights_tie", "--mask_model", "FAME", "--batch_size", str(B), "--test_num_segment", "1",
+                  "--test_num_crop", "2", "--data_set", "Kinetics-400"]
+# the loader's rate: the train files listed this many times (120 samples,
+# 10 batches of 24 clips)
+LOADER_REPEAT = 10
+
+
+def write_real_videos(root: str) -> dict:
+    """REAL_SPLITS' mp4 files of REAL_FRAMES 240x320 frames under `root`,
+    and train.csv, val.csv and test.csv listing them (absolute paths,
+    labels cycling over NUM_CLASSES). Returns the seconds and bytes."""
+    import cv2
+
+    rng = np.random.default_rng(21)
+    t0, nbytes = time.perf_counter(), 0
+    for split, n in REAL_SPLITS:
+        rows = []
+        for i in range(n):
+            path = os.path.join(root, f"{split}{i:02d}.mp4")
+            writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 25, (REAL_HW[1], REAL_HW[0]))
+            small = rng.integers(0, 256, size=(REAL_HW[0] // 8, REAL_HW[1] // 8, 3), dtype=np.uint8)
+            texture = cv2.resize(small, (REAL_HW[1], REAL_HW[0]), interpolation=cv2.INTER_LINEAR)
+            for f in range(REAL_FRAMES):
+                writer.write(np.roll(texture, (2 * f, 3 * f), axis=(0, 1)))
+            writer.release()
+            nbytes += os.path.getsize(path)
+            rows.append(f"{path} {(7 * i) % NUM_CLASSES}")
+        with open(os.path.join(root, f"{split}.csv"), "w") as f:
+            f.write("\n".join(rows))
+    return {"write_s": time.perf_counter() - t0, "bytes": nbytes}
+
+
+def host_cores() -> dict:
+    """Which reader and which RandAugment path the port's data pipeline
+    takes here: the FFmpeg decode core where pkg-config resolves FFmpeg,
+    else cv2; the C++ augment core unless DEVIAS_NO_NATIVE_AUGMENT is set.
+    Builds the cores that are on (their build seconds)."""
+    from devias_tpu_torch.data import native_augment, native_decode, video_reader
+
+    row = {"reader": video_reader.reader_name(), "pkg_config_ffmpeg": native_decode.ffmpeg_flags()}
+    t0 = time.perf_counter()
+    row["augment_core"] = native_augment.available()
+    row["augment_core_build_s"] = time.perf_counter() - t0
+    if native_decode.available():
+        t0 = time.perf_counter()
+        native_decode._load()
+        row["decode_core_build_s"] = time.perf_counter() - t0
+    return row
+
+
+def phase_real_video_cli(attn, card, root: str):
+    """`run_slot_finetuning` in-process at full width on REAL_SPLITS' mp4
+    files: one epoch (1 step of 24 clips), validation, the final test.
+    Every video is opened through the data pipeline's `open_video`, whose
+    readers this phase counts, as it counts the calls that reach the C++
+    augment core. K1: 12 K1-fwd, 12 stats and 12 bwd for the step, 12 K1-fwd
+    per validation and test batch."""
+    from devias_tpu_torch.cli import run_slot_finetuning as cli
+    from devias_tpu_torch.data import datasets, native_augment
+
+    readers, core_calls = {}, [0]
+    open_video, available = datasets.open_video, native_augment.available
+
+    def counted_open(path, *a, **k):
+        r = open_video(path, *a, **k)
+        readers[type(r).__name__] = readers.get(type(r).__name__, 0) + 1
+        return r
+
+    def counted_available():
+        on = available()
+        core_calls[0] += on
+        return on
+
+    datasets.open_video, native_augment.available = counted_open, counted_available
+    try:
+        out = os.path.join(root, "out")
+        result, counts, seconds = _cli_run(attn, cli, REAL_CLI_FLAGS + ["--data_path", root, "--epochs", "1",
+                                                                        "--output_dir", out])
+    finally:
+        datasets.open_video, native_augment.available = open_video, available
+    with open(os.path.join(out, "log.txt")) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    epoch = result["epochs"][0]
+    cores = host_cores()
+    row = {"phase": "real_video_cli", "card": card, **cores, "readers_opened": readers,
+           "augment_core_calls": core_calls[0], "seconds": seconds, "n_steps": epoch["n_steps"],
+           "loop_s": epoch["loop_s"], "first_step_s": epoch["first_step_s"], "final_top1": result.get("final_top1"),
+           "records": records, "launches": counts}
+    emit(row)
+    want_reader = "NativeVideoReader" if cores["reader"] == "native_decode" else "OpenCVVideoReader"
+    n_files = sum(n for _, n in REAL_SPLITS)
+    numbers = [v for r in records for k, v in r.items() if k.startswith(("train_", "val_", "final_"))]
+    if set(readers) != {want_reader} or readers[want_reader] < n_files or epoch["n_steps"] != 1 \
+            or not numbers or not all(np.isfinite(v) for v in numbers) \
+            or (core_calls[0] == 0) == cores["augment_core"]:
+        fail(f"real_video_cli: {row}")
+    want = {"K1-fwd": 36, "K1-fwd-stats": 12, "K1-bwd": 12}
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        fail(f"real_video_cli launched {got}; want {want}")
+    return counts
+
+
+def _per_sample_ms(fn, items) -> float:
+    t0 = time.perf_counter()
+    for item in items:
+        fn(item)
+    return (time.perf_counter() - t0) * 1e3 / len(items)
+
+
+def _loader_rate(args, root: str) -> dict:
+    """The CLI's training loader alone over LOADER_REPEAT passes of the
+    train files: clips/s over the epoch and after its first batch."""
+    from devias_tpu_torch.cli import common
+    from devias_tpu_torch.data import build_dataset
+
+    dataset, _ = build_dataset(True, False, common.make_data_config(args, data_path=root))
+    loader = common.make_train_loader(dataset, args)
+    loader.set_epoch(0)
+    t0 = time.perf_counter()
+    arrivals, clips = [], []
+    try:
+        for batch in loader:
+            arrivals.append(time.perf_counter() - t0)
+            clips.append(batch["videos"].shape[0])
+    finally:
+        loader.close()
+    return {"batches": len(arrivals), "clips": sum(clips), "clips_per_s": sum(clips) / arrivals[-1],
+            "clips_per_s_after_first": sum(clips[1:]) / (arrivals[-1] - arrivals[0])}
+
+
+def phase_loader_split(card, root: str, direct_step_ms: float):
+    """Where the CLI's host pipeline spends its time on REAL_SPLITS' train
+    files, in ms per dataset sample (one decode, then `--num_sample` 2
+    augmented clips): decode (the active reader, and cv2 beside it where
+    the core is on), RandAugment with the augment core on and off (the
+    same op draws), the crop, normalize and flip, random erasing when it
+    fires (it fires with --reprob 0.25), collate and the pinned copy to the
+    card; then the training loader's clips/s with the augment core on and
+    off, beside the direct step's consumption."""
+    import random
+
+    from devias_tpu_torch.cli import common
+    from devias_tpu_torch.cli import run_slot_finetuning as cli
+    from devias_tpu_torch.data import build_dataset, native_augment, native_decode
+    from devias_tpu_torch.data import transforms as T
+    from devias_tpu_torch.data.loader import _collate, _to_tensors
+
+    args = cli.get_args(REAL_CLI_FLAGS + ["--data_path", root, "--output_dir", os.path.join(root, "split_out")])
+    cfg = common.make_data_config(args)
+    ds, _ = build_dataset(True, False, cfg)
+    ds.set_epoch(0)
+    idx = list(range(len(ds)))
+    rngs = {i: ds._sample_rngs(i) for i in idx}
+    stages = {}
+    clips = {}
+
+    def decode(i):
+        clips[i] = ds._load_clip(ds.entries[i], True, rng=rngs[i][1])
+
+    stages["decode"] = _per_sample_ms(decode, idx)
+    if native_decode.available():
+        native_decode._FFMPEG, ffmpeg = None, native_decode._FFMPEG
+        try:
+            stages["decode_cv2"] = _per_sample_ms(lambda i: ds._load_clip(ds.entries[i], True, rng=rngs[i][1]), idx)
+        finally:
+            native_decode._FFMPEG = ffmpeg
+
+    def randaug(i):
+        r = random.Random(i)
+        for _ in range(cfg.num_sample):
+            T.rand_augment_clip(clips[i], cfg.aa, r, interpolation=cfg.train_interpolation)
+
+    stages["randaugment_core_on"] = _per_sample_ms(randaug, idx) if native_augment.available() else None
+    lib, searched = native_augment._LIB, native_augment._SEARCHED
+    native_augment._LIB, native_augment._SEARCHED = None, True
+    try:
+        stages["randaugment_core_off"] = _per_sample_ms(randaug, idx)
+    finally:
+        native_augment._LIB, native_augment._SEARCHED = lib, searched
+    normed = {}
+
+    def crop(i):
+        r = random.Random(i)
+        normed[i] = [T.horizontal_flip_clip(T.normalize_clip(T.random_resized_crop_clip(clips[i], cfg.input_size,
+                                                                                         rng=r)), 0.5, r)
+                     for _ in range(cfg.num_sample)]
+
+    stages["crop_normalize_flip"] = _per_sample_ms(crop, idx)
+    stages["erase_when_fired"] = _per_sample_ms(
+        lambda i: [T.random_erase_clip(c, 1.0, rng=random.Random(i)) for c in normed[i]], idx)
+    samples = [ds[i] for i in idx]
+    t0 = time.perf_counter()
+    batch = _collate(samples)
+    stages["collate"] = (time.perf_counter() - t0) * 1e3 / len(samples)
+    dev = torch.device("cuda")
+    _to_tensors(batch, dev, True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _to_tensors(batch, dev, True)
+    torch.cuda.synchronize()
+    stages["pinned_copy"] = (time.perf_counter() - t0) * 1e3 / len(samples)
+
+    loader_root = os.path.join(root, "loader")
+    os.makedirs(loader_root, exist_ok=True)
+    with open(os.path.join(root, "train.csv")) as f:
+        rows = f.read().splitlines()
+    with open(os.path.join(loader_root, "train.csv"), "w") as f:
+        f.write("\n".join(rows * LOADER_REPEAT))
+    rates = {"core_on": _loader_rate(args, loader_root)}
+    native_augment._LIB, native_augment._SEARCHED = None, True
+    try:
+        rates["core_off"] = _loader_rate(args, loader_root)
+    finally:
+        native_augment._LIB, native_augment._SEARCHED = lib, searched
+    row = {"phase": "loader_split", "card": card, **host_cores(), "host_cpus": os.cpu_count(),
+           "num_workers": args.num_workers, "samples": len(idx), "clips_per_sample": cfg.num_sample,
+           "frames_decoded": REAL_HW + (cfg.num_frames,), "ms_per_sample": stages, "reprob": cfg.reprob,
+           "loader": rates, "direct_step_clips_per_s": B * 1e3 / direct_step_ms}
+    emit(row)
+    want = len(rows) * LOADER_REPEAT // B
+    if any(r["batches"] != want for r in rates.values()) or not all(
+            v is None or (np.isfinite(v) and v >= 0) for v in stages.values()):
+        fail(f"loader_split: {row}")
+
+
+def _raise_person_bias(seg, frames: torch.Tensor, share: float) -> float:
+    """Raise the classifier's person bias of `seg` so that about `share` of
+    the quarter-res pixels of `frames` take the person class. Returns the
+    raise."""
+    from devias_tpu_torch.nn.segformer import CITYSCAPES_PERSON_CLASS as P
+
+    with torch.no_grad():
+        lg = seg(frames).float()
+        gap = torch.cat([lg[..., :P], lg[..., P + 1:]], -1).amax(-1) - lg[..., P]
+        raise_by = torch.quantile(gap.flatten()[:1 << 20], share).item()
+        seg.decode_head.classifier.bias[P] += raise_by
+    return raise_by
+
+
+SEG_WINDOW = 10
+SEG_SHARE = 0.3  # the share of pixels the raised person bias aims at
+
+
+def phase_segformer_train(attn, card):
+    """The slot train step with the Segformer mix (`segformer_apply`) in
+    place of FAME, as `_flagship_step` builds it, B=12 clips of 16x224x224:
+    the mask model is the B3 geometry (`segformer_b3`) in bfloat16 on
+    random weights from a seed, its person bias raised to cover about
+    SEG_SHARE of the pixels of this phase's clips. The mask model alone
+    (ms for the 96 frames of a step), its masks' coverage and their
+    agreement with the same weights in float32; TRAIN_STEPS counted steps
+    (12 K1-fwd, 12 K1-fwd stats and 12 K1-bwd each), SEG_WINDOW timed ones
+    with the peak memory, a profile (device busy share); then
+    segformer_vs_plain: 2 clips with fixed draws through fused and plain
+    attention, held as train_vs_plain."""
+    from devias_tpu_torch.aug import FAMEConfig, segformer_frame_masks
+    from devias_tpu_torch.nn import create_model
+    from devias_tpu_torch.nn.segformer import create_segformer, segformer_b3
+    from devias_tpu_torch.train import TrainStepConfig
+    from devias_tpu_torch.train.step import slot_loss
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    batch = {"videos": rng.standard_normal(CLIPS, dtype=np.float32), "labels": rng.integers(0, NUM_CLASSES, size=B)}
+    videos = torch.from_numpy(batch["videos"]).to(dev)
+    seg = create_segformer(segformer_b3(), seed=7, dtype=torch.bfloat16)
+    raised = _raise_person_bias(seg, videos[:, ::2].reshape(-1, *CLIPS[2:]), SEG_SHARE)
+    masks = segformer_frame_masks(seg, videos)
+    seg32 = create_segformer(segformer_b3(), seed=7)
+    seg32.load_state_dict(seg.state_dict())
+    masks32 = segformer_frame_masks(seg32, videos)
+    seg_info = {"variant": "b3", "params_m": sum(p.numel() for p in seg.parameters()) / 1e6,
+                "person_bias_raise": raised, "coverage_bf16": masks.mean().item(),
+                "coverage_f32": masks32.mean().item(),
+                "bf16_f32_mask_agreement": (masks == masks32).float().mean().item(),
+                "mask_model_ms": time_ms(lambda: segformer_frame_masks(seg, videos), 5),
+                "mask_model_f32_ms": time_ms(lambda: segformer_frame_masks(seg32, videos), 2)}
+    del seg32, masks32, videos
+    loss_cfg, _ = _train_parts()
+    step_cfg = TrainStepConfig(use_fame=False, fame=FAMEConfig(beta=0.5, prob_aug=0.8))
+    student, state, step, _ = _flagship_step(step_cfg, segformer_apply=seg)
+    counts, ms, first = _step_phase(attn, card, {"phase": "segformer_train", **seg_info}, step, state, batch,
+                                    {"K1-fwd": 12, "K1-fwd-stats": 12, "K1-bwd": 12}, SEG_WINDOW)
+    emit({"phase": "segformer_profile", "card": card,
+          **profile_breakdown(lambda: step(state, batch), PROFILE_STEPS)})
+    if not 0.05 < seg_info["coverage_bf16"] < 0.95 or first["mask_distill_loss"] <= 0:
+        fail(f"segformer_train: masks cover {seg_info['coverage_bf16']}, mask loss {first['mask_distill_loss']}")
+    del student, state, step
+    torch.cuda.empty_cache()
+
+    small = torch.from_numpy(rng.standard_normal((2,) + CLIPS[1:], dtype=np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, NUM_CLASSES, size=2)).to(dev)
+    draws = {"perm": torch.tensor([1, 0], device=dev), "keep": torch.tensor([True, True], device=dev),
+             "frame": torch.tensor(3, device=dev)}
+
+    def build(fused):
+        return create_model("slot_vit_base_patch16_224", seed=0, fused_attention=fused, **SLOT_KW)
+
+    def loss_of(model, gen):
+        teacher = create_model("vit_base_patch16_224", seed=1, fused_attention=model.blocks[0].attn.fused,
+                               **TEACHER_KW)
+        return slot_loss(model, teacher, small, labels, loss_cfg, step_cfg, draws=draws, segformer_apply=seg)[0]
+
+    (loss_f, grads_f), (loss_p, grads_p) = _fused_vs_plain(build, loss_of, TRAIN_WATCH)
+    row = {"phase": "segformer_vs_plain", "card": card, "clips": 2}
+    ok = _held(row, loss_f, loss_p, grads_f, grads_p)
+    emit(row)
+    if not ok:
+        fail("fused and plain Segformer train steps disagree beyond their limits")
+    del seg
+    torch.cuda.empty_cache()
+    return counts
+
+
+SEG_CLI_FLAGS = ["--model", "slot_vit_base_patch16_224", "--num_latents", "2", "--agg_depth", "8",
+                 "--agg_weights_tie", "--mask_model", "Segformer", "--segformer_variant", "b0", "--data_set",
+                 "Kinetics-400"] + SHORT_VIEWS
+CONVERT_FLAGS = ["--model_kind", "slot", "--nb_classes", str(NUM_CLASSES), "--num_latents", "2", "--agg_depth", "8",
+                 "--agg_weights_tie"]
+
+
+def phase_segformer_cli(attn, card):
+    """`run_slot_finetuning --mask_model Segformer --segformer_variant b0
+    --segformer_ckpt` an HF-layout .pth this phase writes (b0 on random
+    weights from a seed, the person bias raised on synthetic frames) at
+    full width: a 2-step epoch, validation, the final test, then `--eval`
+    on its checkpoint (the same top-1); then the convert phase on that
+    checkpoint. K1 as options_cli without `--use_checkpoint`: 12 K1-fwd,
+    12 stats and 12 bwd per step, 12 K1-fwd per validation and test batch."""
+    from devias_tpu_torch.cli import run_slot_finetuning as cli
+    from devias_tpu_torch.nn.segformer import create_segformer, segformer_b0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_filelists(tmp, NUM_CLASSES)
+        seg = create_segformer(segformer_b0(), seed=8, dtype=torch.bfloat16)
+        frames = torch.randn((16,) + CLIPS[2:], generator=torch.Generator().manual_seed(9)).cuda()
+        raised = _raise_person_bias(seg, frames, SEG_SHARE)
+        pth = os.path.join(tmp, "segformer_b0.pth")
+        torch.save({k: v.cpu() for k, v in seg.state_dict().items()}, pth)
+        del seg
+        out = os.path.join(tmp, "out")
+        runs = _train_then_eval(attn, cli, SEG_CLI_FLAGS + ["--data_path", tmp], ["--segformer_ckpt", pth],
+                                ["--eval"], out)
+        row = _cli_row("segformer_cli", card, runs, person_bias_raise=raised)
+        steps, val_b, test_b = SHORT_TRAIN // B, -(-SHORT_VAL // B), -(-SHORT_TEST * 2 // B)
+        counts = _check_cli("segformer CLI", row, runs,
+                            {"K1-fwd": 12 * (steps + val_b + test_b), "K1-fwd-stats": 12 * steps,
+                             "K1-bwd": 12 * steps}, {"K1-fwd": 12 * test_b})
+        conv = phase_convert(attn, card, cli, tmp, out, runs[4]["eval"]["top1"])
+    return {k: counts[k] + conv[k] for k in counts}
+
+
+def phase_convert(attn, card, cli, data: str, out: str, top1: float):
+    """`devias_tpu_torch.cli.convert_checkpoint` on the Segformer CLI's
+    full-size checkpoint: `to_reference` ({'model', 'epoch'}), then
+    `to_port` of that file (every key consumed, the model bitwise the
+    checkpoint's), then the CLI's `--eval` with `--finetune` on the
+    round-tripped checkpoint, which must give the original's top-1
+    (12 K1-fwd per test batch)."""
+    from devias_tpu_torch.cli import convert_checkpoint
+
+    ref = os.path.join(data, "reference.pth")
+    t0 = time.perf_counter()
+    convert_checkpoint.main(["to_reference", "--input", os.path.join(out, "ckpt"), "--output", ref, *CONVERT_FLAGS])
+    back = convert_checkpoint.main(["to_port", "--input", ref, "--output", os.path.join(data, "port"),
+                                    *CONVERT_FLAGS])
+    convert_s = time.perf_counter() - t0
+    orig = torch.load(os.path.join(out, "ckpt", "checkpoint-0.pth"), map_location="cpu", weights_only=True)["model"]
+    got = torch.load(back["path"], map_location="cpu", weights_only=True)["model"]
+    ref_obj = torch.load(ref, map_location="cpu", weights_only=True)
+    bitwise = sorted(got) == sorted(orig) and all(torch.equal(got[k], orig[k]) for k in orig)
+    result, counts, seconds = _cli_run(attn, cli, SEG_CLI_FLAGS + [
+        "--data_path", data, "--eval", "--finetune", back["path"], "--output_dir", os.path.join(data, "conv_eval")])
+    test_b = -(-SHORT_TEST * 2 // B)
+    row = {"phase": "convert", "card": card, "convert_s": convert_s, "reference_keys": len(ref_obj["model"]),
+           "reference_epoch": ref_obj["epoch"], "loaded": len(back["report"]["loaded"]),
+           "unused": back["report"]["unused_in_ckpt"], "bitwise": bitwise, "eval_s": seconds,
+           "eval": result.get("eval"), "original_top1": top1, "launches": counts}
+    emit(row)
+    got_counts = {k: v for k, v in counts.items() if v}
+    if not bitwise or row["unused"] or result.get("eval", {}).get("top1") != top1 \
+            or got_counts != {"K1-fwd": 12 * test_b}:
+        fail(f"convert: {row}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -2651,12 +3097,19 @@ def main() -> int:
     attn_drop_launches = phase_attn_drop_train(attn, card)
     int8_launches = phase_int8_teacher(attn, card)
     options_cli_launches = phase_options_cli(attn, card)
+    with tempfile.TemporaryDirectory() as videos:
+        emit({"phase": "real_videos", **write_real_videos(videos)})
+        real_launches = phase_real_video_cli(attn, card, videos)
+        phase_loader_split(card, videos, train_ms)
+    seg_launches = phase_segformer_train(attn, card)
+    seg_cli_launches = phase_segformer_cli(attn, card)
 
     def launches(name):
         return sum(c[name] for c in (train_launches, sp_launches, cli_launches, dp_launches, hat_launches,
                                      hvu_launches, hvu_cli_launches, class_launches, class_cli_launches,
                                      ds_launches, ds_cli_launches, mt_launches, mt_cli_launches, options_launches,
-                                     attn_drop_launches, int8_launches, options_cli_launches))
+                                     attn_drop_launches, int8_launches, options_cli_launches, real_launches,
+                                     seg_launches, seg_cli_launches))
 
     def at_1570(t):
         return {k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}

@@ -12,6 +12,10 @@ be held against the JAX trees. The kinds are the four model families:
 `slot` (SlotViT), `plain` (PlainViT), `multi_task` (MultiTaskViT, whose
 flax `suffix_tokens` is the port's `scene_token`) and `slot_fusion`
 (SlotFusionViT).
+
+`segformer_state_dict_from_jax` maps a flax `Segformer` param tree to the
+HuggingFace layout the port's `nn/segformer.py` carries (the inverse of
+`devias_tpu/ckpt/segformer_import.py`): conv kernels HWIO become OIHW.
 """
 
 from __future__ import annotations
@@ -214,3 +218,41 @@ def param_name_map(model_kind: str, agg_depth: int, names: Iterable[str],
             raise ValueError(f"{name}: round index beyond agg_depth {agg_depth}")
         out[name] = flax_path(name, model_kind, agg_weights_tie)
     return out
+
+
+def _conv(sd, name, tree):
+    sd[f"{name}.weight"] = _np(tree["kernel"]).transpose(3, 2, 0, 1).copy()
+    if "bias" in tree:
+        sd[f"{name}.bias"] = _np(tree["bias"]).copy()
+
+
+def segformer_state_dict_from_jax(params: Dict[str, Any], config) -> Dict[str, np.ndarray]:
+    """HF-layout state dict of a flax `Segformer` param tree of geometry
+    `config` (a `SegformerConfig` of either package)."""
+    sd: Dict[str, np.ndarray] = {}
+    e = "segformer.encoder"
+    for s in range(4):
+        _conv(sd, f"{e}.patch_embeddings.{s}.proj", params[f"patch_embed_{s}_proj"])
+        _ln(sd, f"{e}.patch_embeddings.{s}.layer_norm", params[f"patch_embed_{s}_norm"])
+        for i in range(config.depths[s]):
+            blk, b = params[f"block_{s}_{i}"], f"{e}.block.{s}.{i}"
+            _ln(sd, f"{b}.layer_norm_1", blk["norm1"])
+            for name, sub in (("query", "q"), ("key", "k"), ("value", "v")):
+                _linear(sd, f"{b}.attention.self.{name}", blk["attn"][sub])
+            if "sr" in blk["attn"]:
+                _conv(sd, f"{b}.attention.self.sr", blk["attn"]["sr"])
+                _ln(sd, f"{b}.attention.self.layer_norm", blk["attn"]["sr_norm"])
+            _linear(sd, f"{b}.attention.output.dense", blk["attn"]["proj"])
+            _ln(sd, f"{b}.layer_norm_2", blk["norm2"])
+            _linear(sd, f"{b}.mlp.dense1", blk["mlp"]["dense1"])
+            _conv(sd, f"{b}.mlp.dwconv.dwconv", blk["mlp"]["dwconv"])
+            _linear(sd, f"{b}.mlp.dense2", blk["mlp"]["dense2"])
+        _ln(sd, f"{e}.layer_norm.{s}", params[f"stage_norm_{s}"])
+        _linear(sd, f"decode_head.linear_c.{s}.proj", params[f"linear_c_{s}"])
+    _conv(sd, "decode_head.linear_fuse", params["linear_fuse"])
+    bn = params["bn"]
+    for ours, theirs in (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"), ("running_var", "var")):
+        sd[f"decode_head.batch_norm.{ours}"] = _np(bn[theirs]).copy()
+    sd["decode_head.batch_norm.num_batches_tracked"] = np.asarray(0, np.int64)
+    _conv(sd, "decode_head.classifier", params["classifier"])
+    return sd

@@ -9,7 +9,10 @@ tensors or None, "optimizer": the optimizer's state dict (its buffers and update
 count), "epoch": e, "step": the train state's step, "rng": the step
 generator's state or None}. Its "model" entry loads through
 `ckpt/torch_import.py` like any reference checkpoint, so a trained port
-checkpoint goes straight to `--finetune`.
+checkpoint goes straight to `--finetune`. A weights-only checkpoint
+(`save_weights`, what `cli/convert_checkpoint.py to_port` writes) has the
+same container with no EMA, optimizer or generator state: it loads with
+`--finetune`, and `load_checkpoint` refuses it.
 """
 
 from __future__ import annotations
@@ -33,24 +36,34 @@ def checkpoint_path(output_dir: str, epoch: int) -> str:
     return os.path.join(output_dir, f"checkpoint-{epoch}.pth")
 
 
+def _write(output_dir: str, epoch: int, obj: dict) -> str:
+    os.makedirs(output_dir, exist_ok=True)
+    path = checkpoint_path(output_dir, epoch)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+    return path
+
+
 def save_checkpoint(output_dir: str, epoch: int, state: TrainState,
                     generator: Optional[torch.Generator] = None) -> str:
     """Write `state` (and `generator`'s state) as epoch `epoch`'s
     checkpoint, through a temporary file and a rename. Returns its path."""
-    os.makedirs(output_dir, exist_ok=True)
-    obj = {
+    return _write(output_dir, epoch, {
         "model": {k: _cpu(v) for k, v in state.model.state_dict().items()},
         "model_ema": None if state.ema_params is None else {k: _cpu(v) for k, v in state.ema_params.items()},
         "optimizer": state.optimizer.state_dict(),
         "epoch": int(epoch),
         "step": int(state.step),
         "rng": None if generator is None else generator.get_state(),
-    }
-    path = checkpoint_path(output_dir, epoch)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(obj, tmp)
-    os.replace(tmp, path)
-    return path
+    })
+
+
+def save_weights(output_dir: str, epoch: int, state_dict: dict) -> str:
+    """Write a weights-only checkpoint of `state_dict` as epoch `epoch`'s
+    (no EMA, optimizer or generator state). Returns its path."""
+    return _write(output_dir, epoch, {"model": {k: _cpu(v) for k, v in state_dict.items()}, "model_ema": None,
+                                      "optimizer": None, "epoch": int(epoch), "step": 0, "rng": None})
 
 
 def latest_checkpoint_step(output_dir: str) -> Optional[int]:
@@ -65,6 +78,8 @@ def load_checkpoint(path: str, state: TrainState, generator: Optional[torch.Gene
     """Restore a checkpoint into `state` (and `generator`) in place:
     parameters, EMA, optimizer moments and count, step. Returns its epoch."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
+    if obj["optimizer"] is None:
+        raise ValueError(f"{path} holds weights only (no optimizer state); load it with --finetune")
     state.model.load_state_dict(obj["model"], strict=True)
     if (obj["model_ema"] is None) != (state.ema_params is None):
         raise ValueError(f"{path}: the checkpoint's EMA and the train state's disagree on whether there is one")

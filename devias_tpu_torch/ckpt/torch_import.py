@@ -30,7 +30,7 @@ from torch import nn
 
 MODEL_KINDS = ("slot", "plain", "multi_task", "slot_fusion")
 _BACKBONE = ("patch_embed.", "cls_token", "scene_token", "pos_embed", "blocks.", "norm.")
-_KIND_KEYS = {"slot": _BACKBONE + ("agg_block.", "mask_predictor.", "head."),
+KIND_KEYS = {"slot": _BACKBONE + ("agg_block.", "mask_predictor.", "head."),
               "plain": _BACKBONE + ("fc_norm.", "head."),
               "multi_task": _BACKBONE + ("head.", "scene_head."),
               "slot_fusion": _BACKBONE + ("agg_block.", "head.", "action_norm.", "scene_norm.", "fusion_head.")}
@@ -115,7 +115,7 @@ def import_torch_state_dict(sd: Dict[str, torch.Tensor], model_kind: str, agg_de
     sd = strip_prefixes(sd)
     out: Dict[str, torch.Tensor] = {}
     for k, v in sd.items():
-        if not k.startswith(_KIND_KEYS[model_kind]):
+        if not k.startswith(KIND_KEYS[model_kind]):
             continue
         if k == "pos_embed" and dst_spatial is not None and frames_tokens is not None:
             n_trail = sd["scene_token"].shape[-2] if "scene_token" in sd else 0

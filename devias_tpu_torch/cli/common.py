@@ -171,7 +171,6 @@ def reject_unported(args) -> None:
         (getattr(args, "tp_size", 1) > 1, f"--tp_size: {item17}"),
         (getattr(args, "zero1", False), f"--zero1: {item17}"),
         (getattr(args, "fsdp", False), f"--fsdp: {item17}"),
-        (getattr(args, "mask_model", "") == "Segformer", "--mask_model Segformer: ROADMAP.md queue 1, item 16"),
     )
     for hit, what in checks:
         if hit:

@@ -10,7 +10,9 @@ one it takes (64; `use_attention_kernel`); otherwise, and on `cpu`, its
 plain version.
 Parameters are initialised from `torch.Generator`s seeded by `--seed`
 (student) and `--seed + 1` (teacher). Modes: training (the slot train step
-with FAME, validation each epoch with best-checkpoint tracking, final test
+with FAME, or with `--mask_model Segformer` the frozen SegFormer's person
+masks from the local HF checkpoint `--segformer_ckpt`, run in bfloat16;
+validation each epoch with best-checkpoint tracking, final test
 and merge), `--hat_eval` (alone, with action or `--eval_scene` targets),
 else `--eval`, `--eval_scene`, `--run_scuba` and `--run_knn`, in the JAX
 CLI's dispatch order. `main` returns what it ran: per-epoch loop times and
@@ -74,9 +76,12 @@ def get_args(argv=None):
     parser.add_argument("--scene_model_path", default="", type=str)
     parser.add_argument("--mask_model", default="", choices=["FAME", "Segformer", ""], type=str)
     parser.add_argument("--segformer_ckpt", default="", type=str,
-                        help="local SegFormer-B3 checkpoint for --mask_model Segformer (not ported yet)")
+                        help="local SegFormer-B3 checkpoint (HF snapshot dir / pytorch_model.bin / "
+                             "model.safetensors) for --mask_model Segformer; the reference pulls "
+                             "nvidia/segformer-b3-finetuned-cityscapes from the hub (ref run_slot_finetuning.py:425), "
+                             "here the weights must be local")
     parser.add_argument("--segformer_variant", default="b3", choices=["b0", "b3"], type=str,
-                        help="SegFormer geometry; the reference uses b3")
+                        help="SegFormer geometry; the reference uses b3 (b0 exists for tests)")
     parser.add_argument("--beta", type=float, default=0.5)
     parser.add_argument("--prob_aug", type=float, default=0.5)
     parser.add_argument("--mask_distill_loss_weight", type=float, default=1)
@@ -126,6 +131,25 @@ def build_models(args, device: torch.device, dtype: torch.dtype = torch.bfloat16
         input_norm=args.device_normalize, int8_dense=args.teacher_int8, fused_attention=fused, dtype=dtype,
     )
     return model, teacher
+
+
+def build_segformer(args, device: torch.device, dtype: torch.dtype = torch.bfloat16):
+    """The frozen SegFormer person-mask model of `--mask_model Segformer`
+    (ref run_slot_finetuning.py:423-427) with `--segformer_ckpt`'s weights,
+    as a function of frames [N, H, W, 3] -> quarter-res logits; None for
+    any other mask model."""
+    if args.mask_model != "Segformer":
+        return None
+    if not args.segformer_ckpt:
+        raise SystemExit(
+            "--mask_model Segformer requires --segformer_ckpt pointing at a local "
+            "nvidia/segformer-b3-finetuned-cityscapes-1024-1024 checkpoint (HF snapshot dir, pytorch_model.bin, or "
+            "model.safetensors). Use FAME (the published DEVIAS recipe) if no weights are available.")
+    from devias_tpu_torch.ckpt.segformer_import import load_segformer
+    from devias_tpu_torch.nn.segformer import create_segformer, segformer_b0, segformer_b3
+
+    cfg = {"b0": segformer_b0, "b3": segformer_b3}[args.segformer_variant]()
+    return load_segformer(create_segformer(cfg, device=device, dtype=dtype), args.segformer_ckpt)
 
 
 def init_params(args, model, teacher) -> None:
@@ -202,8 +226,9 @@ def main(args=None) -> dict:
         fame=FAMEConfig(beta=args.beta, prob_aug=args.prob_aug),
         device_normalize=args.device_normalize,
     )
-    train_step = make_slot_train_step(model, teacher, opt, loss_cfg, step_cfg, lr_fn, sp_mesh=sp_mesh,
-                                      dp_mesh=dp_mesh, device=dev)
+    train_step = make_slot_train_step(model, teacher, opt, loss_cfg, step_cfg, lr_fn,
+                                      segformer_apply=build_segformer(args, dev), sp_mesh=sp_mesh, dp_mesh=dp_mesh,
+                                      device=dev)
 
     logger = JsonlLogger(args.output_dir, rank == 0)
     best_scuba = [-1.0]

@@ -1,6 +1,7 @@
-"""The port's data pipeline: filelists, frame samplers, decoders, the host
-transforms, the video datasets, the loader with its host-to-card transfer,
-and the device-side I420 unpack."""
+"""The port's data pipeline: filelists, frame samplers, decoders (with the
+C++ FFmpeg decode core), the host transforms (with the C++ RandAugment
+core), the video datasets, the loader with its host-to-card transfer, and
+the device-side I420 unpack."""
 
 from devias_tpu_torch.data.datasets import DataConfig, VideoDataset, build_dataset, knn_build_dataset
 from devias_tpu_torch.data.filelist import FilelistEntry, read_filelist

@@ -12,10 +12,14 @@ this path against PIL in `tests/test_fast_augment.py`):
     leaves the 1-pixel border untouched
   * Equalize follows PIL's stepped-LUT histogram equalization
   * affine ops use the INVERSE-map convention PIL's Image.transform uses
-The JAX package moves some of these ops to its C++ core
-(`native/augment_core.cpp`) when that library is built; the port does not
-use it and always runs these. cv2 is imported inside the functions that
-use it.
+AutoContrast, Equalize, Color, Contrast, Sharpness and the
+shear/translate warps go to the port's C++ core (`data/native_augment.py`,
+a copy of the JAX package's `native/augment_core.cpp`) unless
+`DEVIAS_NO_NATIVE_AUGMENT` switches it off, at the same points as in
+`devias_tpu/data/fast_augment.py`, so the clips are the JAX package's. Its
+Sharpness is Pillow's exactly (the cv2 path rounds where PIL truncates) and
+its warps take PIL's a=-1.0 cubic and fill rule (cv2 takes a=-0.75 and
+fills taps). cv2 is imported inside the functions that use it.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from __future__ import annotations
 import random as _random
 
 import numpy as np
+
+from devias_tpu_torch.data import native_augment as NA
 
 _FILL = 128
 
@@ -53,8 +59,22 @@ def _blend(a: np.ndarray, b: np.ndarray, f: float) -> np.ndarray:
     return cv2.addWeighted(a2, 1.0 - f, b2, f, 0.0).reshape(shape)
 
 
+def _autocontrast_luts_from_hist(hist: np.ndarray) -> np.ndarray:
+    """hist [T,3,256] -> per-frame per-channel autocontrast LUTs [T,3,256]:
+    the per-frame branch below vectorized across (frame, channel)."""
+    idx = np.arange(256, dtype=np.float64)
+    present = hist > 0  # [T,3,256]
+    lo = np.argmax(present, axis=-1).astype(np.float64)  # first nonzero
+    hi = (255 - np.argmax(present[..., ::-1], axis=-1)).astype(np.float64)
+    span = np.where(hi > lo, hi - lo, 1.0)
+    luts = np.clip(np.round((idx[None, None] - lo[..., None]) * (255.0 / span[..., None])), 0, 255)
+    return np.where((hi > lo)[..., None], luts, idx[None, None]).astype(np.uint8)
+
+
 def autocontrast(clip: np.ndarray) -> np.ndarray:
     """PIL ImageOps.autocontrast (cutoff 0) per frame and channel."""
+    if NA.available():
+        return NA.lut_per_frame(clip, _autocontrast_luts_from_hist(NA.hist_per_frame(clip)))
     import cv2
 
     out = np.empty_like(clip)
@@ -78,9 +98,30 @@ def autocontrast(clip: np.ndarray) -> np.ndarray:
     return out
 
 
+def _equalize_luts_from_hist(hist: np.ndarray) -> np.ndarray:
+    """hist [T,3,256] -> PIL stepped-equalization LUTs [T,3,256]: the
+    per-frame branch below vectorized across (frame, channel)."""
+    h = hist.astype(np.int64)
+    total = h.sum(-1)  # [T,3]
+    nz = h > 0
+    n_nz = nz.sum(-1)
+    # value of the LAST nonzero bin
+    last_idx = 255 - np.argmax(nz[..., ::-1], axis=-1)
+    last = np.take_along_axis(h, last_idx[..., None], axis=-1)[..., 0]
+    step = (total - last) // 255  # [T,3]
+    excl = np.concatenate([np.zeros_like(h[..., :1]), np.cumsum(h, axis=-1)[..., :-1]], axis=-1)
+    safe_step = np.maximum(step, 1)[..., None]
+    luts = np.clip((safe_step // 2 + excl) // safe_step, 0, 255)
+    identity = np.arange(256, dtype=np.int64)[None, None]
+    use_id = (n_nz <= 1) | (step == 0)
+    return np.where(use_id[..., None], identity, luts).astype(np.uint8)
+
+
 def equalize(clip: np.ndarray) -> np.ndarray:
     """PIL ImageOps.equalize: stepped LUT per channel per frame,
     lut[i] = (step//2 + excl_cumsum(h)[i]) // step."""
+    if NA.available():
+        return NA.lut_per_frame(clip, _equalize_luts_from_hist(NA.hist_per_frame(clip)))
     import cv2
 
     out = np.empty_like(clip)
@@ -127,15 +168,22 @@ def solarize_add(clip: np.ndarray, add: float, thresh: int = 128) -> np.ndarray:
 
 
 def color(clip: np.ndarray, f: float) -> np.ndarray:
+    if NA.available():
+        return NA.color_blend(clip, f)
     g = _gray(clip)[..., None].repeat(3, axis=-1)
     return _blend(g, clip, f)
 
 
 def contrast(clip: np.ndarray, f: float) -> np.ndarray:
     """Per-value map -> per-frame LUT: mean*(1-f) + i*f."""
+    idx = np.arange(256, dtype=np.float64)
+    if NA.available():
+        # PIL: mean of the grayscale image, rounded via int(mean + 0.5)
+        means = np.floor(NA.gray_mean_per_frame(clip) + 0.5)
+        luts = np.clip(np.round(means[:, None] * (1.0 - f) + idx[None] * f), 0, 255).astype(np.uint8)
+        return NA.lut_per_frame(clip, np.repeat(luts[:, None, :], 3, axis=1))
     import cv2
 
-    idx = np.arange(256, dtype=np.float64)
     out = np.empty_like(clip)
     for t in range(clip.shape[0]):
         # PIL: mean of the grayscale image, rounded via int(mean + 0.5)
@@ -154,6 +202,10 @@ _SMOOTH_KERNEL = np.array([[1, 1, 1], [1, 5, 1], [1, 1, 1]], np.float32) / 13.0
 
 
 def sharpness(clip: np.ndarray, f: float) -> np.ndarray:
+    if NA.has_sharpness():
+        # exact Pillow semantics (truncating blend); the cv2 path below
+        # rounds through addWeighted
+        return NA.sharpness_blend(clip, f)
     import cv2
 
     out = np.empty_like(clip)
@@ -196,9 +248,25 @@ def _warp_inverse(clip: np.ndarray, inv: np.ndarray, interpolation="bicubic", rn
     return out
 
 
+def _native_interp_flags(interpolation, rng, n_frames):
+    """Map _frame_flags' cv2 flags to the native core's 1=cubic / 0=linear,
+    consuming the SAME rng draws as the cv2 path (a per-frame choice for
+    'random'), so the augmentation streams stay the same across the two
+    paths."""
+    import cv2
+
+    return [int(fl == cv2.INTER_CUBIC) for fl in _frame_flags(interpolation, rng, n_frames)]
+
+
 def _axis_warp(clip, axis_x: bool, shear: float, off: float, interpolation="bicubic", rng=None):
     """ShearX / TranslateX map src_x = x + shear*y + off (src_y = y);
-    ShearY / TranslateY src_y = y + shear*x + off (src_x = x)."""
+    ShearY / TranslateY src_y = y + shear*x + off (src_x = x). The native
+    core resamples along the one axis (4 taps) with PIL's a=-1.0 cubic and
+    its clamp-taps / fill-iff-source-out-of-range edge rule; cv2 warps the
+    whole frame."""
+    if NA.available():
+        flags = _native_interp_flags(interpolation, rng, clip.shape[0])
+        return (NA.warp_x if axis_x else NA.warp_y)(clip, shear, off, _FILL, flags)
     if axis_x:
         inv = np.array([[1, shear, off], [0, 1, 0]], np.float32)
     else:

@@ -1,5 +1,7 @@
 """Video decoding backends (port of `devias_tpu/data/video_reader.py`).
 
+  * NativeVideoReader — the port's C++ FFmpeg decode core
+    (`data/native_decode.py`), random access through a frame index
   * OpenCVVideoReader — cv2.VideoCapture, a forward scan per batch
   * FrameFolderReader — JPEG frame directories read with PIL (SCUBA / *-BG
     / HAT assets, ref kinetics.py:352-385)
@@ -8,8 +10,11 @@
 
 All return uint8 [T, H, W, C] for a requested index array. cv2 and PIL are
 imported by the readers that use them, so importing this module needs
-neither. The JAX package's native FFmpeg decode core is not ported:
-`open_video` always takes the cv2 reader.
+neither. `open_video` prefers the decode core where it is on
+(`native_decode.available()`: `pkg-config` resolves FFmpeg, decided once
+per process), as the JAX package prefers its library, and takes cv2
+elsewhere, or for a file the core cannot open. A failed build of the core
+raises.
 """
 
 from __future__ import annotations
@@ -19,9 +24,16 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from devias_tpu_torch.data import native_decode
+
 
 class VideoReadError(RuntimeError):
     pass
+
+
+def reader_name() -> str:
+    """The reader `open_video` takes for a video file."""
+    return "native_decode" if native_decode.available() else "cv2"
 
 
 def open_video(path: str, min_bytes: int = 1024):
@@ -33,7 +45,42 @@ def open_video(path: str, min_bytes: int = 1024):
         raise VideoReadError(f"missing video {path}")
     if os.path.getsize(path) < min_bytes:
         raise VideoReadError(f"tiny video {path} ({os.path.getsize(path)}B)")
+    if native_decode.available():
+        native_decode._load()  # a failed build raises here
+        try:
+            return NativeVideoReader(path)
+        except (RuntimeError, VideoReadError):
+            pass  # a file the core cannot open goes to cv2, as in the JAX package
     return OpenCVVideoReader(path)
+
+
+class NativeVideoReader:
+    """Random-access decode through the C++ FFmpeg core."""
+
+    def __init__(self, path: str):
+        self._handle = native_decode.open(path)
+        self.num_frames = native_decode.num_frames(self._handle)
+        if self.num_frames <= 0:
+            native_decode.close(self._handle)
+            self._handle = None
+            raise VideoReadError(f"no frames in {path}")
+
+    def __len__(self):
+        return self.num_frames
+
+    def get_batch(self, indices: Sequence[int]) -> np.ndarray:
+        return native_decode.get_batch(self._handle, np.asarray(indices, np.int64))
+
+    def close(self):
+        if self._handle is not None:
+            native_decode.close(self._handle)
+            self._handle = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
 
 class OpenCVVideoReader:

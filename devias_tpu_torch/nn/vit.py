@@ -157,9 +157,10 @@ class FastLayerNorm(nn.Module):
     E[x^2] - E[x]^2 and float32 scale/bias, output in the compute dtype
     (`devias_tpu/nn/vit.py:89-138`, forward only)."""
 
-    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32, eps: float = NORM_EPS):
         super().__init__()
         self.dtype = dtype
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
@@ -171,7 +172,7 @@ class FastLayerNorm(nn.Module):
         xf = x.to(self.dtype).float()
         mean = xf.mean(dim=-1, keepdim=True)
         var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
-        y = (xf - mean) * torch.rsqrt(var + NORM_EPS) * self.weight + self.bias
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return y.to(self.dtype)
 
 

@@ -3,9 +3,10 @@ DEVIAS slot train step, the HVU slot train step, the plain
 classification train step and the multi-task train step.
 
 The slot train step, per micro-batch of `update_freq`: the optional uint8
-or I420 unpack, FAME (mixed clips and patch-grid foreground masks; run
-independently on each of `num_data_shards` blocks of the micro-batch when
-they divide it), the frozen teacher's forward on the mixed clips under
+or I420 unpack, FAME or, with `segformer_apply`, the Segformer mix (mixed
+clips and patch-grid foreground masks; the mix runs independently on each
+of `num_data_shards` blocks of the micro-batch when they divide it), the
+frozen teacher's forward on the mixed clips under
 `no_grad`, the student's forward in `train()` mode, `devias_slot_loss` and
 its backward; the f32 gradients of the micro-batches are summed and
 divided by their number, and one optimizer step follows.
@@ -29,7 +30,8 @@ mesh (`core/dist.py::over_data_group`). The multi-task step
 (`make_multi_task_train_step`) runs the student, the frozen CLS teacher
 under `no_grad` and `multi_task_loss`. All four steps share the
 accumulation, the reductions and the optimizer step (`_run_step`). The
-segformer mix and the pipeline-parallel variant are not ported yet.
+pipeline-parallel variant is not ported yet (`ROADMAP.md` queue 1, item
+17).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from torch import nn
 
 from devias_tpu_torch.aug.fame import IMAGENET_MEAN, IMAGENET_STD, FAMEConfig, fame_augment, fame_augment_hvu
 from devias_tpu_torch.aug.mixup import MixupConfig, mixup_cutmix
+from devias_tpu_torch.aug.segformer_mix import segformer_frame_masks, segformer_mix_sample
 from devias_tpu_torch.core.dist import (
     SPMesh,
     broadcast_from_seq_root,
@@ -97,42 +100,73 @@ def to_device(videos: Union[np.ndarray, torch.Tensor], device: torch.device) -> 
     return x.to(device, non_blocking=True)
 
 
-def _fame(videos: torch.Tensor, labels: torch.Tensor, step_cfg: TrainStepConfig,
-          generator: Optional[torch.Generator], draws):
-    """FAME on the whole micro-batch, or on each of `num_data_shards`
-    contiguous blocks with the block's own draws (one generator stream in
-    block order, or `draws[k]` for block k) when they divide it."""
-    mean, std = ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)) if step_cfg.device_normalize else (IMAGENET_MEAN, IMAGENET_STD)
-    n, B = step_cfg.num_data_shards, videos.shape[0]
+def _by_shards(mix: Callable, B: int, n: int, draws):
+    """`mix(slice, draws)` -> (videos, labels, (fg_mask, fg_pf)) on the
+    whole micro-batch of B, or on each of `n` contiguous blocks with the
+    block's own draws (one generator stream in block order, or `draws[k]`
+    for block k) when they divide it. Returns the four concatenated."""
     if n <= 1 or B % n:
-        videos, labels, (fg_mask, fg_pf) = fame_augment(videos, labels, step_cfg.fame, generator=generator,
-                                                        draws=draws, mean=mean, std=std)
+        videos, labels, (fg_mask, fg_pf) = mix(slice(0, B), draws)
         return videos, labels, fg_mask, fg_pf
     if draws is not None and len(draws) != n:
         raise ValueError(f"draws holds {len(draws)} shards; num_data_shards is {n}")
     b = B // n
-    parts = [fame_augment(videos[k * b:(k + 1) * b], labels[k * b:(k + 1) * b], step_cfg.fame, generator=generator,
-                          draws=None if draws is None else draws[k], mean=mean, std=std) for k in range(n)]
+    parts = [mix(slice(k * b, (k + 1) * b), None if draws is None else draws[k]) for k in range(n)]
     return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]),
             torch.cat([p[2][0] for p in parts]), torch.cat([p[2][1] for p in parts]))
 
 
+def _fame(videos: torch.Tensor, labels: torch.Tensor, step_cfg: TrainStepConfig,
+          generator: Optional[torch.Generator], draws):
+    """FAME, per block of `num_data_shards` (`_by_shards`)."""
+    mean, std = ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)) if step_cfg.device_normalize else (IMAGENET_MEAN, IMAGENET_STD)
+    return _by_shards(lambda sl, d: fame_augment(videos[sl], labels[sl], step_cfg.fame, generator=generator, draws=d,
+                                                 mean=mean, std=std),
+                      videos.shape[0], step_cfg.num_data_shards, draws)
+
+
+def _segformer_mix(videos: torch.Tensor, labels: torch.Tensor, step_cfg: TrainStepConfig,
+                   generator: Optional[torch.Generator], draws, segformer_apply: Callable):
+    """The mask model's person masks on the whole micro-batch (fed
+    ImageNet-normalized clips, as the reference feeds the normalized
+    video; under `device_normalize` the step's [0, 1] clips are normalized
+    for it), then the mix per block of `num_data_shards` (`_by_shards`:
+    each block permutes only its own samples, as FAME's blocks do), with
+    FAME's `prob_aug`."""
+    seg_in = videos
+    if step_cfg.device_normalize:
+        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=videos.device)
+        std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=videos.device)
+        seg_in = (videos - mean) / std
+    masks = segformer_frame_masks(segformer_apply, seg_in)
+    return _by_shards(lambda sl, d: segformer_mix_sample(masks[sl], videos[sl], labels[sl], step_cfg.fame.prob_aug,
+                                                         generator=generator, draws=d),
+                      videos.shape[0], step_cfg.num_data_shards, draws)
+
+
 def mix_clips(videos: torch.Tensor, labels: torch.Tensor, step_cfg: TrainStepConfig,
-              generator: Optional[torch.Generator] = None, draws=None, mesh: Optional[SPMesh] = None):
-    """FAME on unpacked clips, or none: (videos, labels, fg_mask
-    [B, (H/16)(W/16)], fg_pf [B, T/2 (H/16)(W/16)]), the masks zero without
-    FAME. `draws`: one {"perm", "keep"} dict, or one per block of
-    `num_data_shards`. With a `mesh` of more than one seq rank, FAME runs
-    on the seq group's first rank only and its outputs are broadcast to the
-    group, whatever the other ranks' generators hold."""
+              generator: Optional[torch.Generator] = None, draws=None, mesh: Optional[SPMesh] = None,
+              segformer_apply: Optional[Callable] = None):
+    """The Segformer mix with `segformer_apply`, else FAME, else none, on
+    unpacked clips: (videos, labels, fg_mask [B, (H/16)(W/16)], fg_pf
+    [B, T/2 (H/16)(W/16)]), the masks zero without a mix. `draws`: one
+    dict ({"perm", "keep"} for FAME, and "frame" for the Segformer mix), or
+    one per block of `num_data_shards`. With a `mesh` of more than one seq
+    rank, the mix runs on the seq group's first rank only and its outputs
+    are broadcast to the group, whatever the other ranks' generators
+    hold."""
     B, T, H, W = videos.shape[:4]
     n_sp = (H // 16) * (W // 16)
-    if not step_cfg.use_fame:
+    if not step_cfg.use_fame and segformer_apply is None:
         zeros = [torch.zeros(B, n, device=videos.device) for n in (n_sp, (T // 2) * n_sp)]
         return (videos, labels, *zeros)
     seq = mesh is not None and mesh.seq_size > 1
     if not seq or mesh.seq_rank == 0:
-        videos, labels, fg_mask, fg_pf = _fame(videos, labels, step_cfg, generator, draws)
+        if segformer_apply is not None:
+            videos, labels, fg_mask, fg_pf = _segformer_mix(videos, labels, step_cfg, generator, draws,
+                                                            segformer_apply)
+        else:
+            videos, labels, fg_mask, fg_pf = _fame(videos, labels, step_cfg, generator, draws)
     else:
         videos, labels = torch.empty_like(videos), torch.empty_like(labels)
         fg_mask = torch.empty(B, n_sp, device=videos.device)
@@ -144,11 +178,13 @@ def mix_clips(videos: torch.Tensor, labels: torch.Tensor, step_cfg: TrainStepCon
 
 def slot_loss(model: nn.Module, teacher: nn.Module, videos: torch.Tensor, labels: torch.Tensor,
               loss_cfg: SlotLossConfig, step_cfg: TrainStepConfig, generator: Optional[torch.Generator] = None,
-              draws=None, sp_mesh: Optional[SPMesh] = None, dp_mesh: Optional[SPMesh] = None):
+              draws=None, sp_mesh: Optional[SPMesh] = None, dp_mesh: Optional[SPMesh] = None,
+              segformer_apply: Optional[Callable] = None):
     """One micro-batch of the slot train step up to its loss: the uint8 or
-    I420 unpack, FAME, the teacher under `no_grad` on the mixed clips, the
-    student's forward and `devias_slot_loss`. Returns (total loss, the
-    seven metrics detached); the caller runs the backward.
+    I420 unpack, FAME or the Segformer mix (`mix_clips`), the teacher
+    under `no_grad` on the mixed clips, the student's forward and
+    `devias_slot_loss`. Returns (total loss, the seven metrics detached);
+    the caller runs the backward.
 
     With a layout (`sp_mesh` or `dp_mesh`), every rank passes a `generator`
     in the same state, and three streams are split from it per data row
@@ -167,7 +203,7 @@ def slot_loss(model: nn.Module, teacher: nn.Module, videos: torch.Tensor, labels
     fame_gen = backbone_gen = head_gen = generator
     if mesh is not None:
         fame_gen, backbone_gen, head_gen = rank_generators(generator, mesh, videos.device)
-    videos, labels, fg_mask, fg_pf = mix_clips(videos, labels, step_cfg, fame_gen, draws, mesh)
+    videos, labels, fg_mask, fg_pf = mix_clips(videos, labels, step_cfg, fame_gen, draws, mesh, segformer_apply)
     with torch.no_grad():
         teacher_logits = teacher(videos)["logits"]
     tokens = None
@@ -191,15 +227,19 @@ def make_slot_train_step(model: nn.Module, teacher: nn.Module, optimizer: torch.
     """DEVIAS slot train step `step(state, batch, generator=None,
     draws=None, host_metrics=False) -> metrics`.
 
+    `segformer_apply` (a frozen mask model, [N, H, W, 3] -> quarter-res
+    logits) selects the reference's `--mask_model Segformer` branch in
+    place of FAME (`mix_clips`), its mix with FAME's `prob_aug`.
+
     `batch` is {"videos": [B, T, H, W, C], "labels": [B]}, numpy arrays or
     tensors, copied to `device` (`cuda` unless the caller asks for `cpu`),
     where the student, the teacher and the optimizer's parameters must
     already be; B = update_freq x micro-batch. Dropout, drop-path and FAME
     draw from `generator`, or from the step's own generator (seed 0).
     `draws` fixes FAME's draws: one entry per micro-batch (a list), or one
-    entry when update_freq is 1; an entry is a {"perm", "keep"} dict, or a
-    list of one such dict per block when `num_data_shards` blocks divide
-    the micro-batch.
+    entry when update_freq is 1; an entry is a {"perm", "keep"} dict (and
+    "frame" with `segformer_apply`), or a list of one such dict per block
+    when `num_data_shards` blocks divide the micro-batch.
 
     `dp_mesh` (`core/dist.py::make_mesh`) selects data-parallel training:
     each rank calls the step with its own local batch, and the gradients
@@ -219,8 +259,9 @@ def make_slot_train_step(model: nn.Module, teacher: nn.Module, optimizer: torch.
     micro-batches (and the data group), `grad_norm` (before clipping) and,
     with `lr_fn`, `lr` at the step before the update: 0-d device tensors,
     or host floats with `host_metrics=True` (which synchronises)."""
-    if segformer_apply is not None or pp_mesh is not None:
-        raise NotImplementedError("the segformer mix and the pipeline-parallel step are not ported")
+    if pp_mesh is not None:
+        raise NotImplementedError("the pipeline-parallel step is not ported yet: ROADMAP.md queue 1, item 17 "
+                                  "(parallel modes)")
     if sp_mesh is not None and dp_mesh is not None:
         raise ValueError("sp_mesh and dp_mesh are exclusive: a layout with seq ranks is an sp_mesh")
     if dp_mesh is not None and dp_mesh.seq_size > 1:
@@ -245,7 +286,8 @@ def make_slot_train_step(model: nn.Module, teacher: nn.Module, optimizer: torch.
         labels = to_device(batch["labels"], dev).long()
 
         def micro(sl, gen, d):
-            return slot_loss(model, teacher, videos[sl], labels[sl], loss_cfg, step_cfg, gen, d, sp_mesh, dp_mesh)
+            return slot_loss(model, teacher, videos[sl], labels[sl], loss_cfg, step_cfg, gen, d, sp_mesh, dp_mesh,
+                             segformer_apply)
 
         return _run_step(state, optimizer, model, videos.shape[0], U, micro, own_generator if generator is None
                          else generator, draws, mesh, METRIC_NAMES, lr_fn, host_metrics)

@@ -1,7 +1,8 @@
 """The random draws of the JAX package's batch ops, rebuilt from their keys
 in the port's explicit-draws format, for the parity tests: FAME's
-{"perm", "keep"} (`devias_tpu/aug/fame.py::_fame_core`) and mixup's
-(`devias_tpu/aug/mixup.py::mixup_cutmix`, format in
+{"perm", "keep"} (`devias_tpu/aug/fame.py::_fame_core`), the Segformer
+mix's {"perm", "keep", "frame"} (`devias_tpu/aug/segformer_mix.py`) and
+mixup's (`devias_tpu/aug/mixup.py::mixup_cutmix`, format in
 `devias_tpu_torch/aug/mixup.py`)."""
 
 import jax
@@ -19,6 +20,15 @@ def fame_draws_from_key(key, B, prob_aug):
     perm = np.asarray(jax.random.permutation(perm_key, B))
     keep = np.asarray(jax.random.uniform(keep_key, (B,))) < prob_aug if prob_aug < 1 else np.ones(B, bool)
     return {"perm": _t(perm), "keep": _t(keep)}
+
+
+def segformer_draws_from_key(key, B, frames, prob_aug):
+    """`segformer_mix_sample`'s draws: split the key in three ->
+    permutation, uniform < prob_aug, the shared frame index."""
+    perm_key, keep_key, frame_key = jax.random.split(key, 3)
+    perm = np.asarray(jax.random.permutation(perm_key, B))
+    keep = np.asarray(jax.random.uniform(keep_key, (B,))) < prob_aug if prob_aug < 1 else np.ones(B, bool)
+    return {"perm": _t(perm), "keep": _t(keep), "frame": _t(jax.random.randint(frame_key, (), 0, frames))}
 
 
 def step_key(key, step, U, u):

@@ -56,8 +56,7 @@ def test_flag_parity():
             assert got[dest] == value, dest
 
 
-@pytest.mark.parametrize("flags", [["--pp_stages", "2"], ["--tp_size", "2"], ["--zero1"], ["--fsdp"],
-                                   ["--mask_model", "Segformer"]])
+@pytest.mark.parametrize("flags", [["--pp_stages", "2"], ["--tp_size", "2"], ["--zero1"], ["--fsdp"]])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli.main(cli.get_args(BASE + ["--device", "cpu"] + flags))
@@ -85,6 +84,45 @@ def _train_with(flag, filelists, out):
     assert os.listdir(os.path.join(out, "ckpt")) == ["checkpoint-0.pth"]
     assert os.path.exists(os.path.join(out, "test", "0.txt"))
     return built
+
+
+def test_segformer_needs_its_checkpoint(filelists, tmp_path):
+    """--mask_model Segformer without --segformer_ckpt stops with the JAX
+    CLI's message."""
+    with pytest.raises(SystemExit, match="requires --segformer_ckpt"):
+        cli.main(cli.get_args(BASE + ["--device", "cpu", "--data_path", filelists, "--epochs", "1",
+                                      "--mask_model", "Segformer", "--output_dir", str(tmp_path / "out")]))
+
+
+def test_segformer_mask_model_trains(filelists, tmp_path):
+    """--mask_model Segformer (16) with a b0 HF-layout checkpoint: the
+    frozen mask model runs in bfloat16 on every other frame of each
+    training clip, and the run trains and writes its results."""
+    from devias_tpu_torch.nn.segformer import create_segformer, segformer_b0
+
+    seg = create_segformer(segformer_b0(), device="cpu", seed=3)
+    torch.save(seg.state_dict(), tmp_path / "segformer_b0.pth")
+    frames = []
+    build = cli.build_segformer
+
+    def counted(*a, **k):
+        model = build(*a, **k)
+        model.register_forward_hook(lambda m, inp, out: frames.append((inp[0].shape[0], out.dtype)))
+        return model
+
+    out = str(tmp_path / "out")
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(cli, "build_segformer", counted)
+        result = cli.main(cli.get_args(BASE + [
+            "--device", "cpu", "--data_path", filelists, "--epochs", "1", "--max_steps_per_epoch", "2",
+            "--mask_model", "Segformer", "--segformer_variant", "b0", "--segformer_ckpt",
+            str(tmp_path / "segformer_b0.pth"), "--output_dir", out]))
+    # 2 steps of 8 clips (--num_sample 2), 4 of their 8 frames each
+    assert frames == [(32, torch.bfloat16)] * 2
+    with open(os.path.join(out, "log.txt")) as f:
+        records = [json.loads(line) for line in f]
+    assert result["epochs"][0]["n_steps"] == 2 and np.isfinite(records[0]["train_loss"])
+    assert os.path.exists(os.path.join(out, "test", "0.txt"))
 
 
 def test_use_checkpoint_trains(filelists, tmp_path):

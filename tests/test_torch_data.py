@@ -4,10 +4,12 @@ aug seed, epoch and index; the frame samplers; the filelist formats; the
 loader's seeded shuffle and shards; the device prefetch's order on the CPU;
 and that `import devias_tpu_torch` needs neither cv2 nor PIL.
 
-The port runs RandAugment's ops through cv2 only. The JAX package moves
-some of them to its C++ core (`native/augment_core.cpp`) when the library
-is built; the test switches that core off in this process, so both sides
-run the same cv2 and numpy arithmetic and the clips must be bitwise equal.
+Both packages send some RandAugment ops to a C++ core: the JAX package to
+its `native/augment_core.cpp` library, the port to its own copy
+(`devias_tpu_torch/data/native_augment.py`). The train items are held
+bitwise with both cores on, and with both switched off in this process,
+where both sides run the same cv2 and numpy arithmetic; the other tests
+switch both off.
 """
 
 import subprocess
@@ -20,16 +22,24 @@ import torch
 from devias_tpu.data import datasets as jax_datasets
 from devias_tpu.data import loader as jax_loader
 from devias_tpu.data import native_augment
+from devias_tpu_torch.data import native_augment as port_native_augment
 from devias_tpu.data import samplers as jax_samplers
 from devias_tpu.data.filelist import read_filelist as jax_read_filelist
 from devias_tpu_torch.data import DataConfig, DataLoader, build_dataset, device_prefetch, read_filelist
 from devias_tpu_torch.data import samplers
 
 
+def switch_off_augment_cores(monkeypatch):
+    """The JAX package's and the port's C++ augment cores off, so both
+    sides take their numpy/cv2 path."""
+    for module in (native_augment, port_native_augment):
+        monkeypatch.setattr(module, "_LIB", None)
+        monkeypatch.setattr(module, "_SEARCHED", True)
+
+
 @pytest.fixture
 def no_native_augment(monkeypatch):
-    monkeypatch.setattr(native_augment, "_LIB", None)
-    monkeypatch.setattr(native_augment, "_SEARCHED", True)
+    switch_off_augment_cores(monkeypatch)
 
 
 @pytest.fixture(scope="module")
@@ -64,11 +74,18 @@ def _same_item(got, want):
             np.testing.assert_array_equal(a, b, err_msg=k)
 
 
-@pytest.mark.parametrize("kind", sorted(CFGS))
-def test_train_items_bitwise_equal(kind, filelists, no_native_augment):
+@pytest.mark.parametrize("kind,cores", [pytest.param(k, False, id=k) for k in sorted(CFGS)]
+                         + [pytest.param(k, True, id=f"{k}-cores_on") for k in sorted(CFGS)])
+def test_train_items_bitwise_equal(kind, cores, filelists, monkeypatch):
     """Twelve clips over two epochs: the RandAugment op draws, the crop,
     flip and erase draws and the frame window all come from the
-    per-(aug_seed, epoch, index) streams."""
+    per-(aug_seed, epoch, index) streams. With `cores` both packages run
+    their C++ augment cores (AutoContrast, Equalize, Color, Contrast,
+    Sharpness and the shear/translate warps); without, their cv2 paths."""
+    if cores:
+        assert native_augment.has_sharpness() and port_native_augment.has_sharpness()
+    else:
+        switch_off_augment_cores(monkeypatch)
     mine, _ = build_dataset(True, False, _cfg(kind, filelists, False))
     ref, _ = jax_datasets.build_dataset(True, False, _cfg(kind, filelists, True))
     for epoch in (0, 3):

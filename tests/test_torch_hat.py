@@ -11,8 +11,8 @@ background folders plus actionswap pickles), in both layouts:
 
 Annotations, composites and every dataset mode's items must be bitwise
 equal to JAX's (the train mode draws its window and augmentation from the
-process's global states, seeded alike for both sides, with JAX's C++
-augment core switched off as in `tests/test_torch_data.py`).
+process's global states, seeded alike for both sides, with both
+packages' C++ augment cores switched off as in `tests/test_torch_data.py`).
 `--hat_eval` runs through both CLIs in float32 on exported JAX models (the
 CLIs build bf16 models; the test patches each one's `build_models` dtype),
 with action and with scene targets."""
@@ -38,6 +38,7 @@ from devias_tpu_torch.cli import common
 from devias_tpu_torch.cli import run_slot_finetuning as cli
 from devias_tpu_torch.data import DataConfig, build_dataset, knn_build_dataset
 from devias_tpu_torch.data import hat
+from devias_tpu_torch.data import native_augment as port_native_augment
 from devias_tpu_torch.eval import merge_results, parse_result_file
 
 N_FRAMES, H, W = 16, 64, 80
@@ -125,10 +126,12 @@ def _same_item(got, want):
 
 @pytest.fixture
 def seeded_globals(monkeypatch):
-    """JAX's C++ augment core off; `np.random.default_rng()` without a seed
-    and the global `random` made repeatable, so both sides draw alike."""
-    monkeypatch.setattr(native_augment, "_LIB", None)
-    monkeypatch.setattr(native_augment, "_SEARCHED", True)
+    """The JAX package's and the port's C++ augment cores off;
+    `np.random.default_rng()` without a seed and the global `random` made
+    repeatable, so both sides draw alike."""
+    for module in (native_augment, port_native_augment):
+        monkeypatch.setattr(module, "_LIB", None)
+        monkeypatch.setattr(module, "_SEARCHED", True)
     default_rng = np.random.default_rng
     monkeypatch.setattr(np.random, "default_rng", lambda seed=None: default_rng(1234 if seed is None else seed))
 

@@ -8,7 +8,9 @@ interpret mode. The port side runs in four processes joined by gloo (this
 file is their program, `python tests/test_torch_seq_parallel.py RANK DIR`,
 and imports no JAX at module level), on weights imported through
 `ckpt/from_jax.py`; each rank writes what it saw and the tests compare.
-The whole file runs in well under a minute."""
+The SP step with the Segformer mix is held to the port's one-process
+step (which `tests/test_torch_segformer.py` holds to the JAX step). The
+whole file runs in well under a minute."""
 
 import os
 import socket
@@ -29,6 +31,8 @@ OPT = dict(lr=1e-3, min_lr=1e-5, warmup_lr=1e-4, total_steps=8, warmup_steps=1, 
 B, T, HW = 4, 16, 32
 PROB_AUG = 0.8
 STEPS = 2
+# the Segformer mix's draws for the SP step with `segformer_apply`
+SEG_DRAWS = {"perm": [2, 0, 3, 1], "keep": [True, True, False, True], "frame": 1}
 ROOT = Path(__file__).resolve().parents[1]
 # a bias every slot query shares cancels in the slot softmax: its true
 # gradient is zero and both frameworks return rounding noise
@@ -200,6 +204,37 @@ def _rank_main(rank: int, out: Path) -> None:
     res["final"] = {n: p.detach().clone() for n, p in model.named_parameters()}
     res["lr_sum"] = sum(lr_fn(s) for s in range(STEPS))
 
+    # one step with the Segformer mix under SP, and on rank 0 the same step
+    # in this one process without a mesh: the same weights, clips and draws
+    from _segformer_weights import TINY as SEG_TINY
+    from _segformer_weights import hf_state_dict
+
+    from devias_tpu_torch.aug import segformer_frame_masks
+    from devias_tpu_torch.ckpt.segformer_import import load_segformer
+    from devias_tpu_torch.nn.segformer import create_segformer
+
+    seg = load_segformer(create_segformer(SEG_TINY, device="cpu"), hf_state_dict(3, person_bias=0.85))
+    seg_cfg = TrainStepConfig(use_fame=False, fame=FAMEConfig(prob_aug=PROB_AUG))
+    seg_draws = {k: torch.as_tensor(v) for k, v in SEG_DRAWS.items()}
+    batch = ref["batches"][0]
+
+    def segformer_step(sp_mesh):
+        model = student()
+        opt, _ = make_optimizer(model, OptimConfig(**OPT), device="cpu")
+        state = TrainState.create(model, opt, device="cpu")
+        step = make_slot_train_step(model, teacher, opt, SlotLossConfig(5, 4), seg_cfg, segformer_apply=seg,
+                                    sp_mesh=sp_mesh, device="cpu")
+        metrics = step(state, batch, draws=seg_draws, host_metrics=True)
+        return {"metrics": metrics, "final": {n: p.detach().clone() for n, p in model.named_parameters()},
+                "exp_avg": {n: opt.state[p]["exp_avg"].clone() for n, p in model.named_parameters()},
+                "lr": lr_fn(0)}
+
+    res["segformer_sp"] = segformer_step(mesh)
+    if rank == 0:
+        res["segformer_single"] = segformer_step(None)
+        with torch.no_grad():
+            res["segformer_cover"] = segformer_frame_masks(seg, torch.from_numpy(batch["videos"])).mean().item()
+
     # the rejections
     def raises(exc, fn):
         try:
@@ -291,6 +326,34 @@ def test_train_trajectory_matches_jax_sp_step(run):
     for res in ranks[1:]:
         for name, p in res["final"].items():
             torch.testing.assert_close(p, ranks[0]["final"][name], rtol=0, atol=0)
+
+
+def test_segformer_step_under_sp_matches_one_process(run):
+    """One SP step with the Segformer mix (mask model on the seq group's
+    first rank, its mix broadcast) against the same step in one process
+    without a mesh, on the same weights, clips and mix draws: metrics to
+    2e-4 relative, each gradient (through the first Adam moment, a tenth
+    of it) to 2e-4 relative plus 2e-4 of its largest magnitude, and the
+    parameters as in `test_train_trajectory_matches_jax_sp_step`."""
+    _, ranks = run
+    single = ranks[0]["segformer_single"]
+    assert 0.05 < ranks[0]["segformer_cover"] < 0.95
+    assert single["metrics"]["mask_distill_loss"] > 0
+    for res in ranks:
+        sp = res["segformer_sp"]
+        assert set(sp["metrics"]) == set(single["metrics"])
+        for k, want in single["metrics"].items():
+            np.testing.assert_allclose(sp["metrics"][k], want, rtol=2e-4, atol=1e-6, err_msg=k)
+        for name, p in sp["final"].items():
+            if name not in ZERO_GRAD:
+                g_want = single["exp_avg"][name].numpy()
+                np.testing.assert_allclose(sp["exp_avg"][name].numpy(), g_want, rtol=2e-4,
+                                           atol=2e-4 * np.abs(g_want).max(), err_msg=name)
+            got, want = p.numpy(), single["final"][name].numpy()
+            tol = 1e-5 + 3e-4 * np.abs(want).max()
+            off = np.abs(got - want) > tol
+            assert name in ZERO_GRAD or off.mean() <= 0.02, (name, off.mean())
+            assert np.abs(got - want)[off].max(initial=0) <= 2 * single["lr"], name
 
 
 def test_drop_path_agrees_across_token_shards_and_token_dropout_does_not(run):
