@@ -24,7 +24,10 @@ prints one JSON line, and the first failure exits non-zero:
    and at N = 1568 and 1570 (and 1569 for K1-fwd) each kernel, its plain
    version and `scaled_dot_product_attention` (forward, or forward +
    backward; timed as a yardstick only, the port never calls it) timed
-   with CUDA events.
+   with CUDA events. kernel_tp: the three forms of K1 at the
+   tensor-parallel shape, 6 of the 12 heads at N = 1568 (o within
+   KERNEL_TOL of the f32 plain version and PLAIN_TOL of the bf16 one, m, l
+   and the backward within theirs), timed beside the plain versions.
    kernel_q_kv: K2-fwd (`fused_attention_q_kv`), K2-fwd stats and K2-bwd
    at (Nq, Nk) = (392, 1568) (four shards), (1568, 1568) (the one-card SP
    step) and (77, 301) (ragged), within K1's tolerances, timed at the
@@ -188,6 +191,20 @@ prints one JSON line, and the first failure exits non-zero:
    writes, a 2-step epoch and `--eval`; then convert: that checkpoint
    through `convert_checkpoint to_reference` and `to_port`, bitwise, and
    `--eval` on the result with the same top-1.
+
+28. parallel_modes: ZeRO-1, FSDP, TP and PP over two gloo ranks on the
+   one card (`--parallel-rank` processes; PP's stage hand-offs through
+   pinned host buffers), the flagship step at full width and depth on the
+   12 clips: `--zero1` and `--fsdp` over two data rows of 6 clips, TP over
+   one model group of two (K1 on 6 heads per rank), PP over two stages of 6
+   blocks with 4 micro-batches of 3 clips. Each mode is held to the
+   one-process step on the same weights and FAME draws as dp_train holds
+   DP, the ranks bitwise equal on every parameter both hold whole; per mode
+   and rank the K1 launches of a step by form and head count against
+   `parallel_launches_per_step`, ms per step (a two-process gloo run on one
+   card, not a throughput), peak memory, and the placed state's resident
+   bytes against the replicated state's. Then `python -m
+   devias_tpu_torch.dryrun`'s `dryrun_multichip(2)` on the card.
 
 Then a `script` line with the script's own seconds, one
 `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
@@ -374,15 +391,17 @@ def _bound(flops: int, nbytes: int, peak: float = BF16_PEAK):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops, nbytes
 
 
-def attention_bound(N: int, stats: bool = False):
+def attention_bound(N: int, stats: bool = False, heads: int = H):
     """Forward: 4BHN^2D operations; q/k/v read, o (and m, l) written once."""
-    return _bound(4 * B * H * N * N * D, (B * N * 3 * H * D + B * N * H * D) * 2 + (2 * B * H * N * 4 if stats else 0))
+    return _bound(4 * B * heads * N * N * D,
+                  (B * N * 3 * heads * D + B * N * heads * D) * 2 + (2 * B * heads * N * 4 if stats else 0))
 
 
-def attention_bwd_bound(N: int):
+def attention_bwd_bound(N: int, heads: int = H):
     """Backward: five N x N x D products, 10BHN^2D operations; qkv, o, dO,
     m, l read once, dqkv written once."""
-    return _bound(10 * B * H * N * N * D, (2 * B * N * 3 * H * D + 2 * B * N * H * D) * 2 + 2 * B * H * N * 4)
+    return _bound(10 * B * heads * N * N * D,
+                  (2 * B * N * 3 * heads * D + 2 * B * N * heads * D) * 2 + 2 * B * heads * N * 4)
 
 
 def q_kv_bound(Nq: int, Nk: int, stats: bool = False):
@@ -551,6 +570,71 @@ def phase_kernel_bwd(attn):
         del qkv, do, o, m, l, got
         torch.cuda.empty_cache()
     return worst, timing
+
+
+TP_HEADS = H // 2  # a rank's heads of the flagship student under --tp_size 2
+
+
+def phase_kernel_tp(attn):
+    """K1 at the tensor-parallel shape: the student's 1568 tokens with
+    TP_HEADS of its 12 heads, as each rank of `--tp_size 2` runs it. The
+    no-stats forward (TP eval) and the stats forward's o within KERNEL_TOL
+    of the plain version's RMS in f32 and PLAIN_TOL of it in bf16 (one bf16
+    ulp of an output above 0.25 is 0.047 of the RMS here), as phase_kernel
+    holds K1-fwd; m and l within their tolerances, the backward's dq, dk,
+    dv within BWD_TOL; each timed beside its plain version. Returns
+    {kernel: timing} for the kernels line."""
+    N, heads = 1568, TP_HEADS
+    rng = np.random.default_rng(40)
+    dev = torch.device("cuda")
+    qkv = torch.from_numpy(rng.standard_normal((B, N, 3 * heads * D), dtype=np.float32)).to(dev, torch.bfloat16)
+    do = torch.from_numpy(rng.standard_normal((B, N, heads * D), dtype=np.float32)).to(dev, torch.bfloat16)
+    out = attn.fused_attention_qkv(qkv, heads, SCALE)
+    o, m, l = attn.attention_qkv_fwd_stats(qkv, heads, SCALE)
+    dqkv = attn.attention_qkv_bwd(qkv, o, do, m, l, heads, SCALE)
+    torch.cuda.synchronize()
+    eo, em, el = attn.attention_qkv_fwd_stats_reference(qkv.float(), heads, SCALE)
+    po, pm, pl = attn.attention_qkv_fwd_stats_reference(qkv, heads, SCALE)
+    plain_d = attn.attention_qkv_bwd_reference(qkv, o, do, m, l, heads, SCALE)
+    exact_d = attn.attention_qkv_bwd_reference(qkv.float(), eo, do.float(), em, el, heads, SCALE)
+    errs = {"K1-fwd": {"o_vs_plain": (out.float() - po.float()).abs().max().item() / _rms(po),
+                       "o_vs_f32": (out.float() - eo).abs().max().item() / _rms(eo)},
+            "K1-fwd-stats": {"o_vs_plain": (o.float() - po.float()).abs().max().item() / _rms(po),
+                             "o_vs_f32": (o.float() - eo).abs().max().item() / _rms(eo),
+                             "m": (m - em).abs().max().item() / _rms(em), "l": (l - el).abs().max().item() / _rms(el)},
+            "K1-bwd": {"vs_plain": bwd_errors(dqkv, plain_d, exact_d), "vs_f32": bwd_errors(dqkv, exact_d, exact_d)}}
+    max_abs = {"K1-fwd": (out.float() - po.float()).abs().max().item(),
+               "K1-fwd-stats": (o.float() - po.float()).abs().max().item(),
+               "K1-bwd": (dqkv.float() - plain_d.float()).abs().max().item()}
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, o, m, l, dqkv))
+    del eo, em, el, po, pm, pl, plain_d, exact_d
+    torch.cuda.empty_cache()
+    timing = {}
+    for name, fn, plain, bound in (
+            ("K1-fwd", lambda: attn.fused_attention_qkv(qkv, heads, SCALE),
+             lambda: attn.attention_qkv_reference(qkv, heads, SCALE), attention_bound(N, heads=heads)),
+            ("K1-fwd-stats", lambda: attn.attention_qkv_fwd_stats(qkv, heads, SCALE),
+             lambda: attn.attention_qkv_fwd_stats_reference(qkv, heads, SCALE),
+             attention_bound(N, stats=True, heads=heads)),
+            ("K1-bwd", lambda: attn.attention_qkv_bwd(qkv, o, do, m, l, heads, SCALE),
+             lambda: attn.attention_qkv_bwd_reference(qkv, o, do, m, l, heads, SCALE),
+             attention_bwd_bound(N, heads=heads))):
+        timing[name] = {"heads": heads, "N": N, "ms": time_ms(fn, 20), "plain_ms": time_ms(plain, 3),
+                        "bound_ms": bound[0], "bound_by": bound[1], "max_abs_err": max_abs[name]}
+    row = {"phase": "kernel_tp", "heads": heads, "N": N, "err_rms": errs, "finite": finite, "timing": timing,
+           "tol_rms": {"o_vs_plain": PLAIN_TOL, "o_vs_f32": KERNEL_TOL, "m": STATS_M_TOL, "l": STATS_L_TOL,
+                       "bwd": BWD_TOL}}
+    emit(row)
+    e = errs
+    ok = finite and all(e[k]["o_vs_plain"] <= PLAIN_TOL and e[k]["o_vs_f32"] <= KERNEL_TOL
+                        for k in ("K1-fwd", "K1-fwd-stats"))
+    ok &= e["K1-fwd-stats"]["m"] <= STATS_M_TOL and e["K1-fwd-stats"]["l"] <= STATS_L_TOL
+    ok &= max(e["K1-bwd"]["vs_plain"] + e["K1-bwd"]["vs_f32"]) <= BWD_TOL
+    if not ok:
+        fail(f"K1 at {heads} heads beyond its limits: {row}")
+    del qkv, do, out, o, m, l, dqkv
+    torch.cuda.empty_cache()
+    return timing
 
 
 # K2's shapes: the four-shard shape (the local quarter of a 1568-token clip
@@ -1632,6 +1716,217 @@ def phase_dp_train(attn, card):
         if r["launches"] != want:
             fail(f"dp_train launched {r['launches']} on a rank; want {want}")
     return {name: sum(r["launches"][name] for r in ranks) for name in want}
+
+
+# parallel_modes: the four placements and layouts of item 17 over two gloo
+# ranks on the one card, each held to the one-process step
+PARALLEL_MODES = ("zero1", "fsdp", "tp", "pp")
+PARALLEL_RANKS = 2
+PARALLEL_WINDOW = 2
+PP_MICRO = 4
+
+
+def _parallel_batch():
+    """The 12 clips of the train phase with dp_train's per-shard FAME draws
+    (the two data rows of zero1 and fsdp) and one draw over all 12 clips
+    (the one row of tp and pp)."""
+    batch, shard_draws = _dp_batch()
+    rng = np.random.default_rng(3)
+    whole = {"perm": torch.from_numpy(rng.permutation(B)), "keep": torch.from_numpy(rng.random(B) < 0.8)}
+    return batch, shard_draws, whole
+
+
+def parallel_launches_per_step(mode: str) -> dict:
+    """K1's launches one rank makes in one step of `mode`, by form and head
+    count: the teacher's 12 no-stats forwards at its 12 heads; the
+    student's 12 stats forwards and 12 backwards, at 12 / 2 heads under TP
+    (each rank its half of the heads) and, under PP, for each of its
+    12 / 2 blocks once per micro-batch."""
+    depth = heads = 12
+    student_heads = heads // PARALLEL_RANKS if mode == "tp" else heads
+    per = depth // PARALLEL_RANKS * PP_MICRO if mode == "pp" else depth
+    return {"K1-fwd": {heads: depth}, "K1-fwd-stats": {student_heads: per}, "K1-bwd": {student_heads: per}}
+
+
+def _digests(model, skip=()) -> dict:
+    """A hash of each parameter's bytes (those not in `skip`)."""
+    import hashlib
+
+    return {n: hashlib.blake2b(p.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()
+            for n, p in model.named_parameters() if n not in skip}
+
+
+def parallel_rank_main(rank: int, port: int, out: str) -> None:
+    """One rank of the parallel_modes phase, in a process of its own: a gloo
+    group of PARALLEL_RANKS ranks on the one card runs the flagship step in
+    each mode in turn: `--zero1` and `--fsdp` over two data rows (this
+    rank's 6 clips and its shard's FAME draws), TP over one model group of
+    two and PP over one pipe group of two with PP_MICRO micro-batches (all
+    12 clips, one FAME draw). Per mode: one compared step with K1's
+    launches counted by form and head count, the watched gradients and
+    parameters gathered whole, the resident bytes of the placed state
+    against the replicated one, PARALLEL_WINDOW timed steps with the peak
+    memory, and a hash of every parameter both ranks hold whole. Rank 0
+    then runs the one-process step with `num_data_shards=2` and with 1 on
+    all 12 clips from the same weights and draws. Writes
+    `out`/parallel{rank}.pt."""
+    import torch.distributed as dist
+
+    from devias_tpu_torch.core.dist import gather_shards, make_mesh, resident_bytes, shard_train_state
+    from devias_tpu_torch.core.pipeline import make_pp_mesh
+    from devias_tpu_torch.kernels import attention as attn
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=PARALLEL_RANKS, rank=rank)
+    try:
+        _, step_cfg = _train_parts()
+        batch, shard_draws, whole = _parallel_batch()
+        local = B // PARALLEL_RANKS
+        res = {}
+        for mode in PARALLEL_MODES:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            cfg, data, draws = step_cfg, batch, whole
+            if mode in ("zero1", "fsdp"):
+                mesh = make_mesh()
+                layout = {"dp_mesh": mesh}
+                data = {k: v[rank * local:(rank + 1) * local] for k, v in batch.items()}
+                draws = shard_draws[rank]
+            elif mode == "tp":
+                mesh = make_mesh(model_parallel=PARALLEL_RANKS)
+                layout = {"dp_mesh": mesh}
+            else:
+                mesh = make_pp_mesh(PARALLEL_RANKS)
+                layout = {"pp_mesh": mesh}
+                cfg = dataclasses.replace(step_cfg, pp_microbatches=PP_MICRO)
+            student, state, step, grads = _flagship_step(cfg, **layout)
+            replicated = resident_bytes(state)
+            shard_train_state(state, mesh, zero1=mode == "zero1", fsdp=mode == "fsdp", tp=mode == "tp")
+            pl = state.placement
+            attn.reset_launch_counts()
+            metrics = step(state, data, draws=draws, host_metrics=True)
+            torch.cuda.synchronize()
+            by_heads, counts = attn.launch_counts_by_heads(), attn.launch_counts()
+            resident = resident_bytes(state)
+            params = dict(student.named_parameters())
+            cut = {} if pl is None or pl.full else pl.params
+            watched = [n for n in TRAIN_WATCH if n in cut]
+
+            def whole_of(tensors):
+                full = gather_shards([tensors[n].to("cuda") for n in watched], [cut[n] for n in watched])
+                return {n: dict(zip(watched, full)).get(n, tensors[n]).float().cpu() for n in TRAIN_WATCH}
+
+            grads_whole = whole_of(grads) if mode == "tp" else {n: g.float().cpu() for n, g in grads.items()}
+            params_whole = whole_of({n: params[n].detach() for n in TRAIN_WATCH})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(PARALLEL_WINDOW):
+                step(state, data, draws=draws)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / PARALLEL_WINDOW * 1e3
+            counts_window = attn.launch_counts()
+            if pl is not None:
+                pl.gather_params()
+            res[mode] = {"metrics": metrics, "grads": grads_whole, "params": params_whole,
+                         "launches_by_heads": by_heads, "launches_first_step": counts, "launches": counts_window,
+                         "gloo_one_card_ms_per_step": ms,
+                         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                         "resident_bytes": resident, "replicated_bytes": replicated,
+                         "digests": _digests(student, pl.params if mode == "tp" else ())}
+            del student, state, step, grads, params, pl
+        if rank == 0:
+            for shards, draws in ((2, [shard_draws]), (1, whole)):
+                torch.cuda.empty_cache()
+                student, state, step, grads = _flagship_step(dataclasses.replace(step_cfg, num_data_shards=shards))
+                metrics = step(state, batch, draws=draws, host_metrics=True)
+                params = dict(student.named_parameters())
+                res[f"one_process_{shards}"] = {
+                    "metrics": metrics, "grads": {n: g.float().cpu() for n, g in grads.items()},
+                    "params": {n: params[n].detach().float().cpu() for n in TRAIN_WATCH}}
+                del student, state, step, grads, params
+        torch.save(res, os.path.join(out, f"parallel{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel_modes(attn, card):
+    """ZeRO-1, FSDP, TP and PP on the one card: PARALLEL_RANKS processes
+    (`parallel_rank_main`) joined by gloo, which moves CUDA tensors through
+    the host (NCCL refuses two ranks on one device); PP's stage hand-offs
+    go through pinned host buffers. Each mode is held to the one-process
+    step on the same weights and draws (`num_data_shards=2` for the two data
+    rows of zero1 and fsdp, 1 for the one row of tp and pp): the loss within
+    TRAIN_LOSS_TOL, grad_norm and each watched parameter's gradient and
+    value after the step within TRAIN_TOL; the ranks must hold every
+    parameter they both hold whole bitwise equal, and launch K1 as
+    `parallel_launches_per_step` derives. The ms per step printed is a
+    two-process gloo run on one card, not a throughput. Then the port's dry
+    run, `dryrun_multichip(2)`, on the card. Returns the K1 counts of both
+    ranks' steps."""
+    from devias_tpu_torch.dryrun import dryrun_multichip
+
+    with tempfile.TemporaryDirectory() as tmp:
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank", str(r), str(port),
+                                   tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(PARALLEL_RANKS)]
+        try:
+            logs = [p.communicate(timeout=900)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        if any(p.returncode for p in procs):
+            fail(f"parallel_modes ranks exited {[p.returncode for p in procs]}:\n" + "\n".join(logs)[-4000:])
+        ranks = [torch.load(os.path.join(tmp, f"parallel{r}.pt"), weights_only=False) for r in range(PARALLEL_RANKS)]
+        seconds = time.perf_counter() - t0
+    total = {}
+    for mode in PARALLEL_MODES:
+        ref = ranks[0][f"one_process_{2 if mode in ('zero1', 'fsdp') else 1}"]
+        got = [r[mode] for r in ranks]
+        m, m_ref = got[0]["metrics"], ref["metrics"]
+        want = parallel_launches_per_step(mode)
+        row = {"phase": "parallel_modes", "mode": mode, "card": card, "ranks": PARALLEL_RANKS, "backend": "gloo",
+               "pp_hand_off": "pinned host buffers" if mode == "pp" else None,
+               "metrics": m, "metrics_one_process": m_ref, "loss_tol": TRAIN_LOSS_TOL, "tol": TRAIN_TOL,
+               "k1_launches_per_step": [r["launches_by_heads"] for r in got], "k1_want_per_step": want,
+               "gloo_one_card_ms_per_step": [r["gloo_one_card_ms_per_step"] for r in got],
+               "peak_memory_gib": [r["peak_memory_gib"] for r in got],
+               "resident_bytes": [r["resident_bytes"] for r in got], "replicated_bytes": got[0]["replicated_bytes"],
+               "grads": {}, "params": {}}
+        ok = np.isfinite(m["loss"]) and abs(m["loss"] - m_ref["loss"]) <= TRAIN_LOSS_TOL * abs(m_ref["loss"])
+        ok &= abs(m["grad_norm"] - m_ref["grad_norm"]) <= TRAIN_TOL * m_ref["grad_norm"]
+        for kind in ("grads", "params"):
+            for n in TRAIN_WATCH:
+                g, w = got[0][kind][n], ref[kind][n]
+                err, top = (g - w).abs().max().item(), w.abs().max().item()
+                row[kind][n] = {"max_abs_err": err, "max_abs_one_process": top}
+                ok &= bool(torch.isfinite(g).all()) and top > 0 and err <= TRAIN_TOL * top
+        same = got[1]["metrics"] == m and got[1]["digests"] == got[0]["digests"]
+        row["ranks_bitwise_equal"] = same
+        row["parameters_compared_bitwise"] = len(got[0]["digests"])
+        emit(row)
+        if not (ok and same):
+            fail(f"parallel_modes {mode}: disagrees with the one-process step, or its ranks with each other")
+        for r in got:
+            by_heads = r["launches_by_heads"]
+            other = {k: n for k, n in r["launches_first_step"].items() if k not in want and n}
+            window_want = {k: sum(want[k].values()) * (1 + PARALLEL_WINDOW) if k in want else 0
+                           for k in r["launches"]}
+            if by_heads != want or other or r["launches"] != window_want:
+                fail(f"parallel_modes {mode}: K1 launched {by_heads} in a step (want {want}), "
+                     f"{r['launches']} over all steps (want {window_want}), others {other}")
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+    emit({"phase": "parallel_modes_script", "card": card, "seconds": seconds})
+    t0 = time.perf_counter()
+    try:
+        dryrun_multichip(PARALLEL_RANKS)
+    except RuntimeError as exc:
+        fail(f"dryrun_multichip({PARALLEL_RANKS}): {exc}")
+    emit({"phase": "dryrun", "card": card, "processes": PARALLEL_RANKS, "seconds": time.perf_counter() - t0})
+    return total
 
 
 # the hat phase: Kinetics-HAT assets, one version dir of three splits of
@@ -3055,6 +3350,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--dp-rank"]:  # a process of the dp_train phase
         dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return 0
+    if sys.argv[1:2] == ["--parallel-rank"]:  # a process of the parallel_modes phase
+        parallel_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
     try:
         from devias_tpu_torch.kernels import _build as build
         from devias_tpu_torch.kernels import attention as attn
@@ -3069,6 +3367,7 @@ def main() -> int:
     fwd_err, fwd_timing = phase_kernel(attn)
     stats_err, stats_timing = phase_kernel_stats(attn)
     bwd_err, bwd_timing = phase_kernel_bwd(attn)
+    tp_timing = phase_kernel_tp(attn)
     q_kv_err, q_kv_timing = phase_kernel_q_kv(attn)
     phase_sp_compose(attn)
     hm_err, hm_timing = phase_kernel_head_major(attn)
@@ -3103,13 +3402,14 @@ def main() -> int:
         phase_loader_split(card, videos, train_ms)
     seg_launches = phase_segformer_train(attn, card)
     seg_cli_launches = phase_segformer_cli(attn, card)
+    parallel_launches = phase_parallel_modes(attn, card)
 
     def launches(name):
         return sum(c[name] for c in (train_launches, sp_launches, cli_launches, dp_launches, hat_launches,
                                      hvu_launches, hvu_cli_launches, class_launches, class_cli_launches,
                                      ds_launches, ds_cli_launches, mt_launches, mt_cli_launches, options_launches,
                                      attn_drop_launches, int8_launches, options_cli_launches, real_launches,
-                                     seg_launches, seg_cli_launches))
+                                     seg_launches, seg_cli_launches, parallel_launches))
 
     def at_1570(t):
         return {k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
@@ -3119,11 +3419,14 @@ def main() -> int:
     main_shape, shard_shape = Q_KV_SHAPES[1], Q_KV_SHAPES[0]
     rows = (
         ("K1-fwd fused_attention_qkv", "attention_fwd.cu", "devias_tpu/kernels/attention.py:377",
-         eval_launches + launches("K1-fwd"), fwd_err, dict(fwd_timing[1568], n1570=at_1570(fwd_timing[1570]))),
+         eval_launches + launches("K1-fwd"), fwd_err,
+         dict(fwd_timing[1568], n1570=at_1570(fwd_timing[1570]), tp_heads6=tp_timing["K1-fwd"])),
         ("K1-fwd-stats attention_qkv_fwd_stats", "attention_fwd.cu", "devias_tpu/kernels/attention.py:377",
-         launches("K1-fwd-stats"), stats_err, dict(stats_timing[1568], n1570=at_1570(stats_timing[1570]))),
+         launches("K1-fwd-stats"), stats_err,
+         dict(stats_timing[1568], n1570=at_1570(stats_timing[1570]), tp_heads6=tp_timing["K1-fwd-stats"])),
         ("K1-bwd attention_qkv_bwd", "attention_bwd.cu", "devias_tpu/kernels/attention.py:426",
-         launches("K1-bwd"), bwd_err, dict(bwd_timing[1568], n1570=at_1570(bwd_timing[1570]))),
+         launches("K1-bwd"), bwd_err,
+         dict(bwd_timing[1568], n1570=at_1570(bwd_timing[1570]), tp_heads6=tp_timing["K1-bwd"])),
     ) + tuple(
         (f"{kid} {fn}", src, f"devias_tpu/kernels/attention.py:{line}", launches(kid), q_kv_err[kid],
          dict(q_kv_timing[main_shape][kid], shape=list(main_shape), four_shard=q_kv_timing[shard_shape][kid]))
@@ -3145,7 +3448,7 @@ def main() -> int:
         "name": name, "route": "cuda", "source": " + ".join(f"devias_tpu_torch/kernels/csrc/{f}" for f in src.split(" + ")),
         "replaces": replaces, "launches": n, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        **{k: t[k] for k in ("shape", "four_shard", "n1570") if k in t},
+        **{k: t[k] for k in ("shape", "four_shard", "n1570", "tp_heads6") if k in t},
     } for name, src, replaces, n, err, t in rows]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -12,7 +12,11 @@ generator's state or None}. Its "model" entry loads through
 checkpoint goes straight to `--finetune`. A weights-only checkpoint
 (`save_weights`, what `cli/convert_checkpoint.py to_port` writes) has the
 same container with no EMA, optimizer or generator state: it loads with
-`--finetune`, and `load_checkpoint` refuses it.
+`--finetune`, and `load_checkpoint` refuses it. A state placed over a
+process layout (`core/dist.py::shard_train_state`: ZeRO-1, FSDP, TP) is
+saved as its full tensors, gathered on every rank of the layout, so its
+file is the one an unsharded run writes (TP's qkv back in `[q | k | v]`
+rows); `load_checkpoint` cuts the full tensors to this rank's slices.
 """
 
 from __future__ import annotations
@@ -46,13 +50,26 @@ def _write(output_dir: str, epoch: int, obj: dict) -> str:
 
 
 def save_checkpoint(output_dir: str, epoch: int, state: TrainState,
-                    generator: Optional[torch.Generator] = None) -> str:
+                    generator: Optional[torch.Generator] = None, write: bool = True) -> Optional[str]:
     """Write `state` (and `generator`'s state) as epoch `epoch`'s
-    checkpoint, through a temporary file and a rename. Returns its path."""
+    checkpoint, through a temporary file and a rename. Returns its path. A
+    placed state's full tensors are gathered first, a collective that every
+    rank of its layout calls; only a caller with `write` writes (None is
+    returned elsewhere)."""
+    placement = state.placement
+    model = state.model.state_dict() if placement is None else placement.full_model_state()
+    ema = state.ema_params
+    if ema is not None and placement is not None:
+        ema = placement.full_ema(ema)
+    optimizer = state.optimizer.state_dict()
+    if placement is not None:
+        optimizer = placement.full_optimizer_state(optimizer)
+    if not write:
+        return None
     return _write(output_dir, epoch, {
-        "model": {k: _cpu(v) for k, v in state.model.state_dict().items()},
-        "model_ema": None if state.ema_params is None else {k: _cpu(v) for k, v in state.ema_params.items()},
-        "optimizer": state.optimizer.state_dict(),
+        "model": {k: _cpu(v) for k, v in model.items()},
+        "model_ema": None if ema is None else {k: _cpu(v) for k, v in ema.items()},
+        "optimizer": optimizer,
         "epoch": int(epoch),
         "step": int(state.step),
         "rng": None if generator is None else generator.get_state(),
@@ -76,18 +93,24 @@ def latest_checkpoint_step(output_dir: str) -> Optional[int]:
 
 def load_checkpoint(path: str, state: TrainState, generator: Optional[torch.Generator] = None) -> int:
     """Restore a checkpoint into `state` (and `generator`) in place:
-    parameters, EMA, optimizer moments and count, step. Returns its epoch."""
+    parameters, EMA, optimizer moments and count, step; a placed state
+    takes this rank's slices of them. Returns its epoch."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if obj["optimizer"] is None:
         raise ValueError(f"{path} holds weights only (no optimizer state); load it with --finetune")
-    state.model.load_state_dict(obj["model"], strict=True)
-    if (obj["model_ema"] is None) != (state.ema_params is None):
+    placement = state.placement
+    model, ema, optimizer = obj["model"], obj["model_ema"], obj["optimizer"]
+    if placement is not None:
+        model, optimizer = placement.local_model_state(model), placement.local_optimizer_state(optimizer)
+        ema = None if ema is None else placement.local_ema(ema)
+    state.model.load_state_dict(model, strict=True)
+    if (ema is None) != (state.ema_params is None):
         raise ValueError(f"{path}: the checkpoint's EMA and the train state's disagree on whether there is one")
     if state.ema_params is not None:
         with torch.no_grad():
-            for k, v in obj["model_ema"].items():
+            for k, v in ema.items():
                 state.ema_params[k].copy_(v)
-    state.optimizer.load_state_dict(obj["optimizer"])
+    state.optimizer.load_state_dict(optimizer)
     state.step = int(obj["step"])
     if generator is not None:
         if obj["rng"] is None:

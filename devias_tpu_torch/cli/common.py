@@ -7,15 +7,17 @@ the helpers the entry points share: `run_slot_finetuning`,
 `run_multi_task_finetuning`.
 
 Differences from the JAX parser: `--device` defaults to `cuda` (the JAX
-one to `tpu`), and `--profile_dir` captures a `torch.profiler` trace.
-Flags whose path is not ported are accepted by the parser and raise
-`NotImplementedError` naming their `ROADMAP.md` item when a run asks for
-them (`reject_unported`).
+one to `tpu`), and `--profile_dir` captures a `torch.profiler` trace
+(`utils/profiling.py`). `--zero1`, `--fsdp` and, where the CLI's layout
+has a model axis, `--tp_size` place the train state over the layout in
+`run_train_loop` (`core/dist.py::shard_train_state`), as the JAX loop does;
+`--pp_stages` and `--sp_shards` choose the slot CLI's layout.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import os
@@ -27,11 +29,12 @@ import torch
 import torch.distributed as dist
 
 from devias_tpu_torch.ckpt import auto_resume, load_reference_checkpoint, save_checkpoint
+from devias_tpu_torch.core.dist import shard_train_state
 from devias_tpu_torch.data import DataConfig, DataLoader, device_prefetch
 from devias_tpu_torch.kernels.attention import HEAD_DIM
 from devias_tpu_torch.train import OptimConfig
 from devias_tpu_torch.train.step import to_device
-from devias_tpu_torch.utils import MetricLogger, TensorLogger
+from devias_tpu_torch.utils import MetricLogger, TensorLogger, profile_trace
 
 PRINT_FREQ = 50  # steps between the loop's synchronising metric reads
 SCENE_CLASSES = 365  # the Places-365 scene teacher's head, and the unified heads' scene block
@@ -139,15 +142,19 @@ def build_shared_parser(description: str) -> argparse.ArgumentParser:
                    help="accepted for command compatibility (no-op)")
     # extensions
     p.add_argument("--zero1", action="store_true", default=False,
-                   help="extension: shard AdamW moments over the data axis (not ported yet)")
+                   help="extension: keep each process's slice of the AdamW moments over the data axis (ZeRO-1)")
     p.add_argument("--fsdp", action="store_true", default=False,
-                   help="extension: shard params, EMA and AdamW moments over the data axis (not ported yet)")
+                   help="extension: also keep only each process's slice of the parameters and EMA between steps "
+                        "(FSDP; implies --zero1)")
     p.add_argument("--pp_stages", default=1, type=int,
-                   help="extension: pipeline-parallel stages (not ported yet)")
+                   help="extension: pipeline-parallel stages of the slot CLI's backbone, over pipe groups of that "
+                        "many processes (depth %% stages == 0; GPipe, core/pipeline.py)")
     p.add_argument("--pp_microbatches", default=4, type=int,
                    help="extension: GPipe microbatches per micro-step under --pp_stages")
     p.add_argument("--tp_size", default=1, type=int,
-                   help="extension: tensor-parallel size (not ported yet)")
+                   help="extension: tensor-parallel size of the slot CLI's student blocks, over model groups of "
+                        "that many processes (core/dist.py::shard_blocks_tp); the other CLIs' layouts have no "
+                        "model axis, and there it changes nothing, as in the JAX CLIs")
     p.add_argument("--sp_shards", default=1, type=int,
                    help="extension: sequence-parallel shards over seq groups of that many processes "
                         "(world / sp_shards data rows)")
@@ -160,21 +167,6 @@ def build_shared_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--device_normalize", action="store_true", default=False,
                    help="extension: ship uint8 clips, normalize on the device (requires reprob=0)")
     return p
-
-
-def reject_unported(args) -> None:
-    """Raise `NotImplementedError` for a flag whose path the port does not
-    have yet, naming its `ROADMAP.md` item."""
-    item17 = "ROADMAP.md queue 1, item 17 (parallel modes)"
-    checks = (
-        (getattr(args, "pp_stages", 1) > 1, f"--pp_stages: {item17}"),
-        (getattr(args, "tp_size", 1) > 1, f"--tp_size: {item17}"),
-        (getattr(args, "zero1", False), f"--zero1: {item17}"),
-        (getattr(args, "fsdp", False), f"--fsdp: {item17}"),
-    )
-    for hit, what in checks:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet")
 
 
 def tiny_overrides(args) -> dict:
@@ -269,6 +261,7 @@ def run_train_loop(
     on_epoch_end=None,
     rank: int = 0,
     batch_keys=("videos", "labels"),
+    layout=None,
 ):
     """The one shared epoch loop (ref engine train_one_epoch + the
     per-script loop at run_slot_finetuning.py:648-713): batches copied to
@@ -278,7 +271,11 @@ def run_train_loop(
     logging, validation with best-checkpoint tracking, periodic checkpoints
     (with the generator's state), and an optional `torch.profiler` capture.
     `batch_keys` are the batch entries the step takes (the HVU step adds
-    "scene_labels").
+    "scene_labels"). Before the first epoch the state is placed over
+    `layout` (the step's process layout, or None) as --zero1, --fsdp and
+    --tp_size ask (`core/dist.py::shard_train_state`); under FSDP the
+    validation and the evaluations after the loop see the full parameters,
+    and a placed state's checkpoints are gathered on every rank.
 
     validate(state) -> metric dict (runs before checkpoint decisions).
     on_epoch_end(state, epoch, record) -> optional extra record entries.
@@ -291,6 +288,8 @@ def run_train_loop(
     best_acc = -1.0
     profile_dir = getattr(args, "profile_dir", "") or ""
     history = []
+    state = shard_train_state(state, layout, zero1=args.zero1, fsdp=args.fsdp, tp=args.tp_size > 1)
+    placement = state.placement
 
     for epoch in range(start_epoch, args.epochs):
         loader_train.set_epoch(epoch)
@@ -308,7 +307,7 @@ def run_train_loop(
         prof = None
         for it, dev_batch in enumerate(device_prefetch(batches, device, size=2)):
             if profile_dir and epoch == start_epoch and it == 5:
-                prof = _start_profile(device)
+                prof = _start_profile(profile_dir, device)
             metrics = train_step(state, dev_batch, generator=generator)
             # device-side running sum: every step enters the epoch average
             # (ref MetricLogger updates each iteration, utils.py:39-50)
@@ -316,7 +315,7 @@ def run_train_loop(
             msum = metrics if msum is None else {k: msum[k] + metrics[k] for k in msum}
             mcount += 1
             if prof is not None and it == 10:
-                prof = _stop_profile(prof, profile_dir)
+                prof = _stop_profile(prof)
             if it % PRINT_FREQ == 0:
                 # the periodic read is the only host sync in the loop
                 m = {k: float(v) for k, v in metrics.items()}
@@ -330,7 +329,7 @@ def run_train_loop(
                 if it == 0:  # the first batch's load and step, up to that read
                     first_s = time.perf_counter() - t_loop
         if prof is not None:  # a short epoch ended inside the capture window
-            prof = _stop_profile(prof, profile_dir)
+            prof = _stop_profile(prof)
         epoch_avg = {k: float(v) / mcount for k, v in msum.items()} if msum is not None else {}
         loop_s = time.perf_counter() - t_loop
         history.append({"epoch": epoch, "n_steps": it + 1, "loop_s": loop_s, "first_step_s": first_s})
@@ -338,21 +337,20 @@ def run_train_loop(
 
         record = {"epoch": epoch, "train_time_s": round(time.time() - t0, 1), "n_steps": it + 1}
         record.update({f"train_{k}": round(v, 6) for k, v in epoch_avg.items()})
-        if validate is not None and not args.disable_eval_during_finetuning:
-            val = validate(state)
-            record.update({f"val_{k}": round(float(v), 3) for k, v in val.items()})
-            if val.get("acc1", -1) > best_acc:
-                best_acc = val["acc1"]
-                if args.output_dir and args.save_ckpt and rank == 0:
-                    save_checkpoint(os.path.join(args.output_dir, "ckpt_best"), epoch, state, generator)
-        if on_epoch_end is not None:
-            extra = on_epoch_end(state, epoch, record)
-            if extra:
-                record.update(extra)
-        if args.output_dir and args.save_ckpt and rank == 0 and (
-            (epoch + 1) % args.save_ckpt_freq == 0 or epoch + 1 == args.epochs
-        ):
-            save_checkpoint(os.path.join(args.output_dir, "ckpt"), epoch, state, generator)
+        with full_params(state):
+            if validate is not None and not args.disable_eval_during_finetuning:
+                val = validate(state)
+                record.update({f"val_{k}": round(float(v), 3) for k, v in val.items()})
+                better = val.get("acc1", -1) > best_acc
+                if better:
+                    best_acc = val["acc1"]
+                save_state(args, "ckpt_best", epoch, state, generator, rank, better)
+            if on_epoch_end is not None:
+                extra = on_epoch_end(state, epoch, record)
+                if extra:
+                    record.update(extra)
+        save_state(args, "ckpt", epoch, state, generator, rank,
+                   (epoch + 1) % args.save_ckpt_freq == 0 or epoch + 1 == args.epochs)
         logger.write(record)
         # scalars under the train, val and perf heads (ref utils/utils.py:167-188)
         tb.update(head="train", step=epoch, **{k[6:]: v for k, v in record.items() if k.startswith("train_")})
@@ -360,23 +358,56 @@ def run_train_loop(
         tb.update(head="perf", step=epoch, train_time_s=record["train_time_s"])
         tb.flush()
         print(record)
+    if placement is not None:  # the evaluations after the loop take the full parameters
+        placement.gather_params()
     return state, best_acc, history
 
 
-def _start_profile(device: torch.device):
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
-    prof = profile(activities=activities)
+def _start_profile(profile_dir: str, device: torch.device):
+    prof = profile_trace(profile_dir, device)
     prof.__enter__()
     return prof
 
 
-def _stop_profile(prof, profile_dir: str):
+def _stop_profile(prof):
     prof.__exit__(None, None, None)
-    os.makedirs(profile_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
     return None
+
+
+@contextlib.contextmanager
+def full_params(state):
+    """Under FSDP, the full parameters within the block (gathered on entry,
+    this rank's slices kept again on exit); otherwise nothing."""
+    if state.placement is None:
+        yield
+        return
+    state.placement.gather_params()
+    try:
+        yield
+    finally:
+        state.placement.release_params()
+
+
+def _rank0_says(flag: bool) -> bool:
+    """Rank 0's `flag`, on every rank."""
+    obj = [bool(flag)]
+    dist.broadcast_object_list(obj, src=0)
+    return obj[0]
+
+
+def save_state(args, name: str, epoch: int, state, generator: torch.Generator, rank: int, when: bool = True):
+    """Epoch `epoch`'s checkpoint of `state` under --output_dir/`name` when
+    rank 0's `when` holds, written by rank 0. A placed state's slices are
+    gathered on every rank first (`ckpt/io.py::save_checkpoint`), so rank 0's
+    decision is shared."""
+    if not (args.output_dir and args.save_ckpt):
+        return
+    path = os.path.join(args.output_dir, name)
+    if state.placement is not None:
+        if _rank0_says(when):
+            save_checkpoint(path, epoch, state, generator, write=rank == 0)
+    elif when and rank == 0:
+        save_checkpoint(path, epoch, state, generator)
 
 
 def global_batch(args) -> int:
@@ -469,10 +500,15 @@ def make_eval_loader(dataset, args, batch_size: Optional[int] = None, all_hosts:
     shard; merge dedups). all_hosts=True shards across processes
     unconditionally with padded (equal-length) shards, as the k-NN banks
     need (the reference's DistributedSampler pads the same way, ref
-    run_knn.py:28-42)."""
+    run_knn.py:28-42). Under --tp_size, --dist_eval shards across data rows
+    instead: the ranks of a model group run one forward together and read
+    the same views (their identical result files merge as one)."""
     rank, size = world()
     multi = all_hosts and size > 1
     sharded = multi or args.dist_eval
+    tp = getattr(args, "tp_size", 1)
+    if sharded and not multi and tp > 1:
+        rank, size = rank // tp, size // tp
     return DataLoader(dataset, batch_size=batch_size or args.batch_size, shuffle=False, drop_last=False,
                       num_workers=args.num_workers, shard=rank if sharded else 0,
                       num_shards=size if sharded else 1, pad_shards=multi)

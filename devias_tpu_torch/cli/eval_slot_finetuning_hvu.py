@@ -17,7 +17,7 @@ import argparse
 
 import numpy as np
 
-from devias_tpu_torch.cli.common import build_shared_parser, make_data_config, make_eval_loader, reject_unported
+from devias_tpu_torch.cli.common import build_shared_parser, make_data_config, make_eval_loader
 from devias_tpu_torch.cli.run_slot_finetuning_hvu import both_logits_fn, build_hvu_model, load_hvu_weights
 from devias_tpu_torch.core.dist import maybe_init_distributed
 from devias_tpu_torch.data import build_dataset
@@ -84,7 +84,6 @@ def main(args=None) -> dict:
     # quoted "SEEN UNSEEN" token works too)
     if isinstance(args.anno_path, (list, tuple)):
         args.anno_path = " ".join(args.anno_path)
-    reject_unported(args)
     dev = resolve_device(args.device)
     maybe_init_distributed(dev)
     model = build_hvu_model(args, dev)

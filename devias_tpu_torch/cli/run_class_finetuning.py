@@ -47,7 +47,6 @@ from devias_tpu_torch.cli.common import (
     make_optim_config,
     make_scuba_loader,
     make_train_loader,
-    reject_unported,
     resume,
     run_train_loop,
     test_and_merge,
@@ -137,7 +136,6 @@ def make_criterion(args):
 
 def main(args=None) -> dict:
     args = args or get_args()
-    reject_unported(args)
     if args.sp_shards > 1:
         raise ValueError("--sp_shards: the classification step has no sequence-parallel form "
                          "(nor has the JAX package's)")
@@ -201,7 +199,7 @@ def main(args=None) -> dict:
     try:
         _, _, history = run_train_loop(
             args, state, train_step, loader_train, steps_per_epoch, device=dev, generator=generator,
-            validate=validate, logger=logger, start_epoch=start_epoch, rank=rank,
+            validate=validate, logger=logger, start_epoch=start_epoch, rank=rank, layout=dp_mesh,
         )
     finally:
         loader_train.close()

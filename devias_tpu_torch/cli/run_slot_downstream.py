@@ -41,7 +41,6 @@ from devias_tpu_torch.cli.common import (
     make_eval_loader,
     make_optim_config,
     make_train_loader,
-    reject_unported,
     resume,
     run_train_loop,
     test_and_merge,
@@ -94,7 +93,6 @@ def build_fusion_model(args, device: torch.device, dtype: torch.dtype = torch.bf
 
 def main(args=None) -> dict:
     args = args or get_args()
-    reject_unported(args)
     if args.sp_shards > 1:
         raise ValueError("--sp_shards: the downstream step has no sequence-parallel form (nor has the JAX package's)")
     dev = resolve_device(args.device)
@@ -143,7 +141,7 @@ def main(args=None) -> dict:
     try:
         _, _, history = run_train_loop(
             args, state, train_step, loader_train, steps_per_epoch, device=dev, generator=generator,
-            validate=validate, logger=logger, start_epoch=start_epoch, rank=rank,
+            validate=validate, logger=logger, start_epoch=start_epoch, rank=rank, layout=dp_mesh,
         )
     finally:
         loader_train.close()

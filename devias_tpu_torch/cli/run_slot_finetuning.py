@@ -19,10 +19,13 @@ CLI's dispatch order. `main` returns what it ran: per-epoch loop times and
 the final numbers, or the evaluations' results.
 
 Several processes (torchrun, or DEVIAS_TPU_COORDINATOR/NUM_PROCS/PROC_ID)
-train data-parallel, one data row per process; with `--sp_shards S`, S
-processes form a row's seq group. Each row reads its own shard of the
-training set, `--dist_eval` shards the test views over every process, and
-rank 0 writes the log and the checkpoints.
+train data-parallel, one data row per process; with `--sp_shards S`,
+`--pp_stages P` or `--tp_size T` (mutually exclusive, as in JAX), that many
+processes form a row's seq, pipe or model group. Each row reads its own
+shard of the training set, `--dist_eval` shards the test views over every
+process (over the data rows under `--tp_size`), and rank 0 writes the log
+and the checkpoints. `--zero1` and `--fsdp` place the train state over the
+data rows (`cli/common.py::run_train_loop`).
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import numpy as np
 import torch
 
 from devias_tpu_torch.aug.fame import FAMEConfig
-from devias_tpu_torch.ckpt import load_reference_checkpoint, save_checkpoint
+from devias_tpu_torch.ckpt import load_reference_checkpoint
 from devias_tpu_torch.cli.common import (
     JsonlLogger,
     attention_kernel_for,
@@ -48,16 +51,17 @@ from devias_tpu_torch.cli.common import (
     make_optim_config,
     make_scuba_loader,
     make_train_loader,
-    reject_unported,
     resume,
     run_knn_protocol,
     run_train_loop,
+    save_state,
     test_and_merge,
     tiny_overrides,
     use_attention_kernel,
     world,
 )
 from devias_tpu_torch.core.dist import make_mesh, make_sp_mesh, maybe_init_distributed
+from devias_tpu_torch.core.pipeline import make_pp_mesh
 from devias_tpu_torch.data import build_dataset
 from devias_tpu_torch.device import resolve_device
 from devias_tpu_torch.eval import hat_eval, run_scuba, validation_one_epoch
@@ -162,17 +166,35 @@ def init_params(args, model, teacher) -> None:
         print(f"scene teacher load: {len(rep['loaded'])} tensors")
 
 
+def layouts(args) -> tuple:
+    """(sp_mesh, pp_mesh, dp_mesh) of the run, at most one of them set (the
+    JAX CLI's mesh choice, `devias_tpu/cli/run_slot_finetuning.py:160-184`):
+    (data, seq) groups of --sp_shards, (data, pipe) groups of --pp_stages,
+    (data, model) groups of --tp_size, or pure data parallelism over
+    several processes."""
+    active = [f for f, v in (("--pp_stages", args.pp_stages), ("--sp_shards", args.sp_shards),
+                             ("--tp_size", args.tp_size)) if v > 1]
+    if len(active) > 1:
+        raise ValueError(f"{' and '.join(active)} are mutually exclusive")
+    rank, size = world()
+    if active and size == 1:
+        raise RuntimeError(f"{active[0]} needs a process group: launch one process per rank (torchrun, or "
+                           "DEVIAS_TPU_COORDINATOR/NUM_PROCS/PROC_ID)")
+    if args.pp_stages > 1:
+        return None, make_pp_mesh(args.pp_stages), None
+    if args.sp_shards > 1:
+        return make_sp_mesh(args.sp_shards), None, None
+    if args.tp_size > 1:
+        return None, None, make_mesh(model_parallel=args.tp_size)
+    return None, None, make_mesh() if size > 1 else None
+
+
 def main(args=None) -> dict:
     args = args or get_args()
-    reject_unported(args)
     dev = resolve_device(args.device)
-    if not maybe_init_distributed(dev) and args.sp_shards > 1:
-        raise RuntimeError("--sp_shards needs a process group: launch one process per shard (torchrun, or "
-                           "DEVIAS_TPU_COORDINATOR/NUM_PROCS/PROC_ID)")
+    maybe_init_distributed(dev)
     rank, size = world()
-    # (data, seq) layout: seq groups of --sp_shards, or pure data parallelism
-    sp_mesh = make_sp_mesh(args.sp_shards) if args.sp_shards > 1 else None
-    dp_mesh = make_mesh() if sp_mesh is None and size > 1 else None
+    sp_mesh, pp_mesh, dp_mesh = layouts(args)
     # rank-offset seeding (ref run_slot_finetuning.py:261-265)
     np.random.seed(args.seed + rank)
 
@@ -206,8 +228,8 @@ def main(args=None) -> dict:
     # the step's draws (FAME, dropout, drop-path), in one state on every
     # rank; a layout's step splits its streams from a host generator, and
     # the checkpoint's one state resumes every rank
-    layout = sp_mesh is not None or dp_mesh is not None
-    generator = torch.Generator(device="cpu" if layout else dev).manual_seed(args.seed)
+    layout = next((m for m in (sp_mesh, pp_mesh, dp_mesh) if m is not None), None)
+    generator = torch.Generator(device="cpu" if layout is not None else dev).manual_seed(args.seed)
 
     start_epoch = resume(args, state, generator)
 
@@ -225,10 +247,11 @@ def main(args=None) -> dict:
         use_fame=args.mask_model == "FAME",
         fame=FAMEConfig(beta=args.beta, prob_aug=args.prob_aug),
         device_normalize=args.device_normalize,
+        pp_microbatches=args.pp_microbatches,
     )
     train_step = make_slot_train_step(model, teacher, opt, loss_cfg, step_cfg, lr_fn,
-                                      segformer_apply=build_segformer(args, dev), sp_mesh=sp_mesh, dp_mesh=dp_mesh,
-                                      device=dev)
+                                      segformer_apply=build_segformer(args, dev), pp_mesh=pp_mesh, sp_mesh=sp_mesh,
+                                      dp_mesh=dp_mesh, device=dev)
 
     logger = JsonlLogger(args.output_dir, rank == 0)
     best_scuba = [-1.0]
@@ -250,14 +273,16 @@ def main(args=None) -> dict:
             print(f"scuba_val skipped: {exc}")
             return None
         mean_top1 = float(np.mean([v["acc1"] for v in scuba.values()])) if scuba else 0.0
-        if mean_top1 > best_scuba[0] and args.output_dir and args.save_ckpt and rank == 0:
+        better = mean_top1 > best_scuba[0] and rank == 0
+        if better:
             best_scuba[0] = mean_top1
-            save_checkpoint(os.path.join(args.output_dir, "ckpt_scuba_best"), epoch, state, generator)
+        save_state(args, "ckpt_scuba_best", epoch, state, generator, rank, better)
         return {"scuba_val_top1": round(mean_top1, 3)}
 
     state, _, history = run_train_loop(
         args, state, train_step, loader_train, steps_per_epoch, device=dev, generator=generator,
         validate=validate, logger=logger, start_epoch=start_epoch, on_epoch_end=on_epoch_end, rank=rank,
+        layout=layout,
     )
 
     # final test + merge (ref run_slot_finetuning.py:715-726)

@@ -35,7 +35,6 @@ from devias_tpu_torch.cli.common import (
     make_eval_loader,
     make_optim_config,
     make_train_loader,
-    reject_unported,
     resume,
     run_train_loop,
     tiny_overrides,
@@ -125,7 +124,6 @@ def hvu_validation(loader, forward_fn, batch_size: int, num_action: int) -> dict
 
 def main(args=None) -> dict:
     args = args or get_args()
-    reject_unported(args)
     if args.sp_shards > 1:
         raise ValueError("--sp_shards: the HVU step has no sequence-parallel form (nor has the JAX package's)")
     dev = resolve_device(args.device)
@@ -179,6 +177,7 @@ def main(args=None) -> dict:
         _, best, history = run_train_loop(
             args, state, train_step, loader_train, steps_per_epoch, device=dev, generator=generator,
             validate=validate, logger=JsonlLogger(args.output_dir, rank == 0), start_epoch=start_epoch, rank=rank,
+            layout=dp_mesh,
             batch_keys=("videos", "labels", "scene_labels"),
         )
     finally:

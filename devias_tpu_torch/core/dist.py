@@ -1,5 +1,6 @@
-"""Process groups and the sequence-parallel backbone (port of the
-sequence-parallel part of `devias_tpu/core/dist.py`).
+"""Process layouts, the sequence-parallel backbone, tensor parallelism
+and the placement of a train state over a layout (port of
+`devias_tpu/core/dist.py`).
 
 Sequence parallelism (SP) splits one clip's tokens over the ranks of a
 seq group: each rank runs the backbone on its own frames (token order
@@ -32,6 +33,25 @@ Here each rank holds only its own rows, so `over_data_group` gathers the
 data group's rows, applies the op to the global micro-batch with draws
 from a stream every rank holds alike (`mix_generators`), and keeps this
 rank's rows. The slot step's FAME stays shard-local, as in JAX.
+
+Tensor parallelism (TP, `make_mesh(model_parallel=t)`) cuts the student's
+blocks Megatron-style over the t ranks of a model group
+(`shard_blocks_tp`): the fused qkv and fc1 column-parallel, proj and fc2
+row-parallel. `copy_to_model_group` (identity forward, all-reduce
+backward) feeds each column-parallel product and `reduce_from_model_group`
+(all-reduce forward, identity backward) sums each row-parallel one. The
+pipeline layout (`core/pipeline.py::make_pp_mesh`) is the third inner
+axis. One `SPMesh` describes all of them: a data axis and at most one
+inner axis (seq, model or pipe) of more than one rank.
+
+`shard_train_state` places a `TrainState` over a layout (a `Placement`):
+ZeRO-1 keeps each rank's slice of the AdamW moments along `zero1_axis`;
+FSDP also keeps only that slice of the parameters and the EMA between
+steps, gathering the full weights at each step's start; TP keeps the
+blocks' cut weights, their moments and their EMA. The gradients are
+reduced over the data group as under DP, so ZeRO-1 and FSDP do DP's
+arithmetic element for element. `Shard` says how one tensor is cut and
+`gather_shards` puts the pieces back together, in one all-gather per call.
 """
 
 from __future__ import annotations
@@ -50,6 +70,8 @@ from devias_tpu_torch.device import DeviceLike, resolve_device
 
 DATA_AXIS = "data"
 SEQ_AXIS = "seq"
+MODEL_AXIS = "model"
+PIPE_AXIS = "pipe"
 
 
 def maybe_init_distributed(device: DeviceLike = None) -> bool:
@@ -83,12 +105,15 @@ def maybe_init_distributed(device: DeviceLike = None) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class SPMesh:
-    """The (data, seq) process layout of data- and sequence-parallel
-    training. Rank r is seq rank r mod seq_size of data row r // seq_size,
-    as the JAX mesh lays devices out. `seq_group` holds this rank's data
-    row and `data_group` the ranks of its seq position across the rows;
-    either is None where its axis has one rank and no collective runs over
-    it (`make_mesh`'s seq axis, a single row's data axis)."""
+    """A process layout of data rows and one inner axis: seq (sequence
+    parallelism, `make_sp_mesh`), model (tensor parallelism,
+    `make_mesh(model_parallel=t)`) or pipe (pipeline parallelism,
+    `core/pipeline.py::make_pp_mesh`); the other two keep one rank. Rank r
+    is inner rank r mod inner_size of data row r // inner_size, as the JAX
+    mesh lays devices out. Each `*_group` holds this rank's data row along
+    its axis, `data_group` the ranks of its inner position across the rows;
+    a group is None where its axis has one rank and no collective runs over
+    it (`make_mesh`'s inner axes, a single row's data axis)."""
 
     seq_group: Any
     seq_rank: int
@@ -96,11 +121,31 @@ class SPMesh:
     data_group: Any = None
     data_rank: int = 0
     data_size: int = 1
+    model_group: Any = None
+    model_rank: int = 0
+    model_size: int = 1
+    pipe_group: Any = None
+    pipe_rank: int = 0
+    pipe_size: int = 1
 
     @property
     def seq_root(self) -> int:
         """Global rank of this seq group's first rank."""
         return self.data_rank * self.seq_size
+
+    @property
+    def inner(self) -> tuple:
+        """(group, rank, size) of the inner axis with more than one rank, or
+        the seq axis's."""
+        for axis in ("model", "pipe"):
+            if getattr(self, f"{axis}_size") > 1:
+                return getattr(self, f"{axis}_group"), getattr(self, f"{axis}_rank"), getattr(self, f"{axis}_size")
+        return self.seq_group, self.seq_rank, self.seq_size
+
+    @property
+    def inner_root(self) -> int:
+        """Global rank of this data row's first rank."""
+        return self.data_rank * self.inner[2]
 
 
 def _world() -> tuple:
@@ -115,31 +160,40 @@ def _group(ranks: List[int], world: int):
     return dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
 
 
+def _layout(inner: int, axis: str) -> SPMesh:
+    """Data rows of `inner` ranks along `axis` over the initialised process
+    group. Every rank creates every inner group, then every data group, in
+    rank order, and keeps its own."""
+    rank, world = _world()
+    if inner < 1 or world % inner:
+        raise ValueError(f"{world} processes not divisible by {axis}_parallel={inner}")
+    rows = world // inner
+    # a seq axis of one keeps a group: the sequence-parallel collectives
+    # run over it whatever its size
+    inner_groups = ([_group([d * inner + s for s in range(inner)], world) for d in range(rows)]
+                    if inner > 1 or axis == SEQ_AXIS else [None] * rows)
+    data_groups = ([_group([d * inner + s for d in range(rows)], world) for s in range(inner)]
+                   if rows > 1 else [None] * inner)
+    data_rank, inner_rank = divmod(rank, inner)
+    kw = {f"{axis}_group": inner_groups[data_rank], f"{axis}_rank": inner_rank, f"{axis}_size": inner}
+    return SPMesh(**{"seq_group": None, "seq_rank": 0, "seq_size": 1, **kw}, data_group=data_groups[inner_rank],
+                  data_rank=data_rank, data_size=rows)
+
+
 def make_sp_mesh(seq_parallel: int) -> SPMesh:
     """A (data, seq) layout over the initialised process group, with
     `seq_parallel` ranks per seq group and world // seq_parallel data rows.
-    Every rank creates every seq group, then every data group, in rank
-    order, and keeps its own. Raises when the world size is not divisible
-    by `seq_parallel`."""
-    rank, world = _world()
-    if seq_parallel < 1 or world % seq_parallel:
-        raise ValueError(f"{world} processes not divisible by seq_parallel={seq_parallel}")
-    rows = world // seq_parallel
-    seq_groups = [_group([d * seq_parallel + s for s in range(seq_parallel)], world) for d in range(rows)]
-    data_groups = ([_group([d * seq_parallel + s for d in range(rows)], world) for s in range(seq_parallel)]
-                   if rows > 1 else [None] * seq_parallel)
-    data_rank, seq_rank = divmod(rank, seq_parallel)
-    return SPMesh(seq_group=seq_groups[data_rank], seq_rank=seq_rank, seq_size=seq_parallel,
-                  data_group=data_groups[seq_rank], data_rank=data_rank, data_size=rows)
+    Raises when the world size is not divisible by `seq_parallel`."""
+    return _layout(seq_parallel, SEQ_AXIS)
 
 
-def make_mesh() -> SPMesh:
-    """Pure data parallelism over the initialised process group (the JAX
-    package's `make_mesh()` with no model axis): every rank a data row of
-    one seq rank."""
-    rank, world = _world()
-    return SPMesh(seq_group=None, seq_rank=0, seq_size=1, data_group=dist.group.WORLD if world > 1 else None,
-                  data_rank=rank, data_size=world)
+def make_mesh(model_parallel: int = 1) -> SPMesh:
+    """A (data, model) layout over the initialised process group (the JAX
+    package's `make_mesh`): model groups of `model_parallel` ranks, which
+    cut the student's blocks (`shard_blocks_tp`), and world //
+    model_parallel data rows. `make_mesh()` is pure data parallelism: every
+    rank a data row."""
+    return _layout(model_parallel, MODEL_AXIS)
 
 
 def _all_gather_tokens(x: torch.Tensor, mesh: SPMesh) -> torch.Tensor:
@@ -194,6 +248,48 @@ def gather_tokens(tokens: torch.Tensor, mesh: SPMesh) -> torch.Tensor:
     holds whole (a summing backward would scale every backbone gradient by
     seq_size)."""
     return _GatherTokens.apply(tokens, mesh)
+
+
+def _all_reduce_f32(x: torch.Tensor, group) -> torch.Tensor:
+    """`x` summed over `group` in float32 (a new tensor), in `x`'s dtype."""
+    y = x.float().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    return y.to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce_f32(grad, ctx.mesh.model_group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _all_reduce_f32(x, mesh.model_group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model_group(x: torch.Tensor, mesh: SPMesh) -> torch.Tensor:
+    """The input of a column-parallel product: identity forward; the
+    backward sums the gradient over the model group, since each rank's
+    columns give only their part of it (Megatron's f)."""
+    return _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model_group(x: torch.Tensor, mesh: SPMesh) -> torch.Tensor:
+    """The output of a row-parallel product: each rank's partial sum,
+    summed over the model group in float32; identity backward (Megatron's
+    g)."""
+    return _ReduceFromModel.apply(x, mesh)
 
 
 def _fold(seed: int, *ids: int) -> int:
@@ -307,11 +403,12 @@ def seq_parallel_tokens(model: nn.Module, videos: torch.Tensor, mesh: SPMesh, de
     return gather_tokens(tokens, mesh)
 
 
-def broadcast_from_seq_root(tensors: Sequence[torch.Tensor], mesh: SPMesh) -> None:
-    """Overwrite `tensors` on every rank of the seq group with the group's
-    first rank's (in place)."""
+def broadcast_in_row(tensors: Sequence[torch.Tensor], mesh: SPMesh) -> None:
+    """Overwrite `tensors` on every rank of the data row (its seq, model or
+    pipe group) with the row's first rank's (in place)."""
+    group = mesh.inner[0]
     for t in tensors:
-        dist.broadcast(t, src=mesh.seq_root, group=mesh.seq_group)
+        dist.broadcast(t, src=mesh.inner_root, group=group)
 
 
 def _all_reduce_flat(tensors: List[torch.Tensor], group, scale: float = 1.0) -> None:
@@ -334,14 +431,39 @@ def reduce_backbone_grads(model: nn.Module, mesh: SPMesh) -> None:
     _all_reduce_flat([p.grad for p in model.backbone_parameters() if p.grad is not None], mesh.seq_group)
 
 
+def reduce_stage_grads(model: nn.Module, mesh: SPMesh) -> None:
+    """Sum over the pipe group, in one all-reduce, the gradients that only
+    one stage computes: each block's (its own stage) and the patch embed's,
+    extra tokens' and positions' (stage 0). The final norm, the agg block
+    and the heads run on every pipe rank on the same tokens and hold the
+    same gradient there, so they are left alone (a sum would scale them by
+    the number of stages). A parameter a stage did not reach gets a zero
+    gradient first."""
+    grads = []
+    for name, p in model.named_parameters():
+        if p.requires_grad and name.split(".", 1)[0] in STAGE_MODULES:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+    _all_reduce_flat(grads, mesh.pipe_group)
+
+
+# the backbone's modules whose gradient one pipeline stage computes
+STAGE_MODULES = ("patch_embed", "cls_token", "scene_token", "pos_embed", "blocks")
+
+
 def reduce_grads(model: nn.Module, mesh: SPMesh) -> None:
-    """The gradient reduction of a data- and sequence-parallel step: the
-    backbone's gradients summed over the seq group, then every gradient
-    averaged over the data group, one flat all-reduce per group. Each data
-    row's loss is the mean over its own samples, so with equal local
-    batches the average is the gradient of the global batch's mean."""
+    """The gradient reduction of a layout's step: the backbone's gradients
+    summed over the seq group (SP), or the stages' over the pipe group
+    (PP, `reduce_stage_grads`), then every gradient averaged over the data
+    group, one flat all-reduce per group. Under TP the cut weights' gradients
+    are each rank's own and the others agree already. Each data row's loss
+    is the mean over its own samples, so with equal local batches the
+    average is the gradient of the global batch's mean."""
     if mesh.seq_size > 1:
         reduce_backbone_grads(model, mesh)
+    if mesh.pipe_size > 1:
+        reduce_stage_grads(model, mesh)
     if mesh.data_size > 1:
         _all_reduce_flat([p.grad for p in model.parameters() if p.grad is not None], mesh.data_group,
                          1.0 / mesh.data_size)
@@ -365,3 +487,257 @@ def min_over_data(value: torch.Tensor, mesh: SPMesh) -> torch.Tensor:
     value = value.clone()
     dist.all_reduce(value, op=dist.ReduceOp.MIN, group=mesh.data_group)
     return value
+
+
+# ---------------------------------------------------------------- placement
+
+
+def zero1_axis(shape: Sequence[int], n: int, floating: bool = True) -> Optional[int]:
+    """The ZeRO-1 rule of `devias_tpu/core/dist.py::zero1_spec`: the first
+    axis whose size is at least `n` and divisible by it, or None for a 0-d
+    or non-float tensor and where no axis qualifies (it stays replicated)."""
+    if len(shape) == 0 or not floating:
+        return None
+    return next((axis for axis, d in enumerate(shape) if d >= n and d % n == 0), None)
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """How one tensor is cut over `group`: `parts` equal blocks along `axis`
+    (3 for the fused qkv's q | k | v), each cut in `size` equal pieces; rank
+    `rank` of the group holds piece `rank` of every block, in block order."""
+
+    axis: int
+    rank: int
+    size: int
+    group: Any
+    parts: int = 1
+
+    def view(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's piece of `full` as a view (one block only)."""
+        n = full.shape[self.axis] // self.size
+        return full.narrow(self.axis, self.rank * n, n)
+
+    def local(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's pieces of `full`, a new contiguous tensor."""
+        blocks = full.chunk(self.parts, self.axis)
+        return torch.cat([Shard(self.axis, self.rank, self.size, None).view(b) for b in blocks], self.axis).clone()
+
+
+def gather_shards(pieces: Sequence[torch.Tensor], shards: Sequence[Shard]) -> List[torch.Tensor]:
+    """The full tensors of `pieces` (this rank's, cut as `shards` say, all
+    over one group): one all-gather of their concatenation per dtype."""
+    out: List[Optional[torch.Tensor]] = [None] * len(pieces)
+    for dtype in dict.fromkeys(t.dtype for t in pieces):
+        idx = [i for i, t in enumerate(pieces) if t.dtype == dtype]
+        size, group = shards[idx[0]].size, shards[idx[0]].group
+        flat = torch.cat([pieces[i].reshape(-1) for i in idx])
+        parts = [torch.empty_like(flat) for _ in range(size)]
+        dist.all_gather(parts, flat, group=group)
+        offset = 0
+        for i in idx:
+            t, sh = pieces[i], shards[i]
+            by_rank = [p[offset:offset + t.numel()].view(t.shape).chunk(sh.parts, sh.axis) for p in parts]
+            offset += t.numel()
+            out[i] = torch.cat([torch.cat([r[b] for r in by_rank], sh.axis) for b in range(sh.parts)], sh.axis)
+    return out
+
+
+def _gather_dict(tensors: Dict[str, torch.Tensor], shards: Dict[str, Shard]) -> Dict[str, torch.Tensor]:
+    names = [k for k in tensors if k in shards]
+    full = gather_shards([tensors[k] for k in names], [shards[k] for k in names]) if names else []
+    return {**tensors, **dict(zip(names, full))}
+
+
+def shard_blocks_tp(model: nn.Module, mesh: SPMesh) -> Dict[str, Shard]:
+    """Cut the blocks of `model`'s backbone over `mesh`'s model group in
+    place, Megatron-style, and return the cut parameters' `Shard`s by name:
+    the fused qkv column-parallel and head-aligned (rank m keeps the q, k
+    and v rows of heads m H/t ... (m+1) H/t - 1), proj row-parallel (its
+    input columns), fc1 column-parallel (rows and bias), fc2 row-parallel.
+    These are the leaves `devias_tpu/core/dist.py::tp_param_spec` cuts; the
+    q and v biases, the norms and the row-parallel biases stay whole.
+    Each block then runs its K1 on its H/t heads (`nn/vit.py`)."""
+    t, m, group = mesh.model_size, mesh.model_rank, mesh.model_group
+    cuts = {"attn.qkv.weight": Shard(0, m, t, group, parts=3), "attn.proj.weight": Shard(1, m, t, group),
+            "mlp.fc1.weight": Shard(0, m, t, group), "mlp.fc1.bias": Shard(0, m, t, group),
+            "mlp.fc2.weight": Shard(1, m, t, group)}
+    shards = {}
+    with torch.no_grad():
+        for i, blk in enumerate(model.blocks):
+            if blk.attn.num_heads % t:
+                raise ValueError(f"{blk.attn.num_heads} heads not divisible by model_parallel={t}")
+            for name, shard in cuts.items():
+                p = blk.get_parameter(name)
+                p.data = shard.local(p.data)
+                shards[f"blocks.{i}.{name}"] = shard
+            blk.attn.tp = blk.mlp.tp = mesh
+    return shards
+
+
+@dataclasses.dataclass
+class Placement:
+    """Where a `TrainState`'s tensors live across a layout
+    (`shard_train_state`). `params`: the parameters (and EMA entries) cut
+    between steps, by name (FSDP over the data group, TP over the model
+    group); `moments`: the optimizer buffers cut over the data group, by
+    parameter index (ZeRO-1 and FSDP; their parameters are updated through
+    a view of this rank's slice). Under FSDP `full` says whether the
+    parameters are gathered now: from a step's start to its end, and after
+    `gather_params`."""
+
+    model: nn.Module
+    optimizer: Any
+    fsdp: bool = False
+    params: Dict[str, Shard] = dataclasses.field(default_factory=dict)
+    moments: Dict[int, Shard] = dataclasses.field(default_factory=dict)
+    full: bool = False
+
+    def _named(self) -> Dict[str, nn.Parameter]:
+        return dict(self.model.named_parameters())
+
+    @torch.no_grad()
+    def gather_params(self) -> None:
+        """FSDP: gather the full parameters (one all-gather)."""
+        if self.fsdp and not self.full:
+            named = self._named()
+            names = list(self.params)
+            for n, full in zip(names, gather_shards([named[n].data for n in names],
+                                                    [self.params[n] for n in names])):
+                named[n].data = full
+            self.full = True
+
+    @torch.no_grad()
+    def release_params(self) -> None:
+        """FSDP: keep only this rank's slices of the parameters."""
+        if self.fsdp and self.full:
+            named = self._named()
+            for n, shard in self.params.items():
+                named[n].data = shard.local(named[n].data)
+        self.full = False
+
+    @torch.no_grad()
+    def after_update(self) -> None:
+        """After the optimizer's update of this rank's slices: FSDP frees the
+        full weights, ZeRO-1 all-gathers the updated slices into the
+        replicated parameters (one all-gather)."""
+        if self.fsdp:
+            self.release_params()
+        elif self.moments:
+            params = self.optimizer.param_groups[0]["params"]
+            idx = list(self.moments)
+            pieces = [self.moments[i].view(params[i].data).contiguous() for i in idx]
+            for i, full in zip(idx, gather_shards(pieces, [self.moments[i] for i in idx])):
+                params[i].data.copy_(full)
+
+    def _param_cut(self) -> Dict[str, Shard]:
+        """The parameters cut now (FSDP's only while released)."""
+        return {} if self.fsdp and self.full else self.params
+
+    def _state_cuts(self) -> Dict[str, Shard]:
+        """`_param_cut` by state-dict key: a parameter shared by several
+        modules (the tied agg rounds) has a key for each."""
+        cuts = self._param_cut()
+        by_id = {id(p): cuts[n] for n, p in self.model.named_parameters() if n in cuts}
+        return {k: by_id[id(t)] for k, t in self.model.state_dict(keep_vars=True).items() if id(t) in by_id}
+
+    def _buffer_cuts(self) -> Dict[int, Shard]:
+        if self.moments:
+            return self.moments
+        return {i: self.params[n] for i, n in enumerate(self.optimizer.names) if n in self.params}
+
+    # -- full tensors for a checkpoint (collective), and back
+    def full_model_state(self) -> Dict[str, torch.Tensor]:
+        return _gather_dict(self.model.state_dict(), self._state_cuts())
+
+    def full_ema(self, ema: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return _gather_dict(ema, self.params)
+
+    def full_optimizer_state(self, sd: dict) -> dict:
+        cuts = self._buffer_cuts()
+        keys = [(i, k) for i in sorted(cuts) for k in sorted(sd["state"].get(i, {})) if torch.is_tensor(
+            sd["state"][i][k]) and sd["state"][i][k].dim() > 0]
+        full = gather_shards([sd["state"][i][k] for i, k in keys], [cuts[i] for i, _ in keys]) if keys else []
+        state = {i: dict(v) for i, v in sd["state"].items()}
+        for (i, k), t in zip(keys, full):
+            state[i][k] = t
+        return {**sd, "state": state}
+
+    def local_model_state(self, sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        cuts = self._state_cuts()
+        return {k: cuts[k].local(v) if k in cuts else v for k, v in sd.items()}
+
+    def local_ema(self, ema: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {k: self.params[k].local(v) if k in self.params else v for k, v in ema.items()}
+
+    def local_optimizer_state(self, sd: dict) -> dict:
+        cuts = self._buffer_cuts()
+        state = {int(i): {k: cuts[int(i)].local(t) if int(i) in cuts and torch.is_tensor(t) and t.dim() > 0 else t
+                          for k, t in v.items()} for i, v in sd["state"].items()}
+        return {**sd, "state": state}
+
+
+def resident_bytes(state) -> Dict[str, int]:
+    """Bytes this rank holds now of `state`'s parameters, optimizer buffers
+    and EMA (a placed state's slices, or the whole tensors)."""
+    return {"params": sum(p.numel() * p.element_size() for p in state.model.parameters()),
+            "moments": sum(t.numel() * t.element_size() for st in state.optimizer.state.values()
+                           for t in st.values() if torch.is_tensor(t)),
+            "ema": sum(t.numel() * t.element_size() for t in (state.ema_params or {}).values())}
+
+
+def shard_train_state(state, mesh: Optional[SPMesh], zero1: bool = False, fsdp: bool = False, tp: bool = False):
+    """Place `state` (a `train/state.py::TrainState`) over `mesh` in place
+    and return it (`devias_tpu/core/dist.py::shard_train_state`):
+
+    - zero1: each rank keeps its slice of every optimizer buffer along
+      `zero1_axis` over the data group (a buffer with no such axis stays
+      whole); the update runs on this rank's slices and the updated slices
+      are all-gathered into the replicated parameters;
+    - fsdp (implies zero1): the parameters and the EMA are cut the same way
+      between steps, and each step gathers the full weights at its start
+      and frees them at its end;
+    - tp: the student's blocks are cut over the model group
+      (`shard_blocks_tp`), their moments and EMA with them.
+
+    The gradients are reduced over the data group as under DP and the
+    global-norm clip sees whole gradients (under TP the cut ones' norms are
+    summed over the model group), so ZeRO-1 and FSDP take DP's steps element
+    for element. `tp` with `zero1` or `fsdp` raises, as in JAX. Without a
+    layout, or with one rank on the axis a mode cuts over, nothing is cut
+    and the state stays unplaced."""
+    if tp and (zero1 or fsdp):
+        raise ValueError("tp placement with zero1/fsdp is not supported")
+    zero1 = zero1 or fsdp
+    if not (zero1 or tp):
+        return state
+    opt = state.optimizer
+    placement = Placement(state.model, opt, fsdp=fsdp)
+    params = opt.param_groups[0]["params"]
+    with torch.no_grad():
+        if tp and mesh is not None and mesh.model_size > 1:
+            placement.params = shard_blocks_tp(state.model, mesh)
+            opt.model_group = mesh.model_group
+            opt.cut = [n in placement.params for n in opt.names]
+        elif zero1 and mesh is not None and mesh.data_size > 1:
+            n = mesh.data_size
+            for i, (name, p) in enumerate(zip(opt.names, params)):
+                axis = zero1_axis(p.shape, n, p.is_floating_point())
+                if axis is not None:
+                    placement.moments[i] = Shard(axis, mesh.data_rank, n, mesh.data_group)
+                    if fsdp:
+                        placement.params[name] = placement.moments[i]
+            opt.shards = placement.moments
+        for i, cut in placement._buffer_cuts().items():
+            st = opt.state[params[i]]
+            for k in list(st):
+                if torch.is_tensor(st[k]) and st[k].dim() > 0:
+                    st[k] = cut.local(st[k])
+        if state.ema_params is not None:
+            state.ema_params = placement.local_ema(state.ema_params)
+        if fsdp:
+            placement.full = True
+            placement.release_params()
+    if placement.params or placement.moments:
+        state.placement = placement
+    return state

@@ -31,7 +31,9 @@ kernel on a CUDA tensor, or raises on what the kernel does not take (not
 bfloat16, head dim not 64, a logit scale that is not a power of two, not
 contiguous or not 16-byte aligned), and runs its plain version on a CPU
 tensor; `m` and `l` are [B, H, Nq] float32. Each wrapper's `launches`
-counts its kernel launches. The kernels are built for Hopper from
+counts its kernel launches; K1's also count them by head count in
+`launches_by_heads` (tensor parallelism runs K1 on a rank's share of the
+heads). The kernels are built for Hopper from
 `csrc/hopper.cuh`: TMA loads into 128-byte-swizzled tiles, wgmma products
 and a producer warpgroup beside the consumer warpgroups; the backward is
 three launches (pre-pass, dq, dkdv) over scratch the wrapper allocates.
@@ -321,7 +323,7 @@ def _fwd_no_stats(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tens
     out = torch.empty((B, N, num_heads * D), dtype=qkv.dtype, device=qkv.device)
     _run(_fn("attention_fwd", "devias_attention_qkv_fwd", 2), qkv.device,
          qkv.data_ptr(), out.data_ptr(), B, N, num_heads, D, float(scale))
-    fused_attention_qkv.launches += 1
+    _count(fused_attention_qkv, num_heads)
     return out
 
 
@@ -338,7 +340,7 @@ def attention_qkv_fwd_stats(qkv: torch.Tensor, num_heads: int,
     m, l = _stats_like(B, num_heads, N, qkv.device)
     _run(_fn("attention_fwd", "devias_attention_qkv_fwd_stats", 4), qkv.device,
          qkv.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(), B, N, num_heads, D, float(scale))
-    attention_qkv_fwd_stats.launches += 1
+    _count(attention_qkv_fwd_stats, num_heads)
     return out, m, l
 
 
@@ -360,8 +362,14 @@ def attention_qkv_bwd(qkv: torch.Tensor, o: torch.Tensor, do: torch.Tensor, m: t
     _run(_fn("attention_bwd", "devias_attention_qkv_bwd", 8), qkv.device,
          qkv.data_ptr(), o.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(), rows.data_ptr(), ops.data_ptr(),
          dqkv.data_ptr(), B, N, num_heads, D, float(scale))
-    attention_qkv_bwd.launches += 1
+    _count(attention_qkv_bwd, num_heads)
     return dqkv
+
+
+def _count(fn, num_heads: int) -> None:
+    """One launch of K1's `fn` at `num_heads` heads."""
+    fn.launches += 1
+    fn.launches_by_heads[num_heads] = fn.launches_by_heads.get(num_heads, 0) + 1
 
 
 class _FusedAttentionQKV(torch.autograd.Function):
@@ -583,11 +591,23 @@ KERNELS = {
 }
 
 
+K1_KERNELS = ("K1-fwd", "K1-fwd-stats", "K1-bwd")
+for _name in K1_KERNELS:
+    KERNELS[_name].launches_by_heads = {}
+
+
 def launch_counts() -> dict:
     """Kernel launches of each wrapper since the last reset."""
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def launch_counts_by_heads() -> dict:
+    """K1's launches since the last reset, by form and head count."""
+    return {name: dict(KERNELS[name].launches_by_heads) for name in K1_KERNELS}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    for name in K1_KERNELS:
+        KERNELS[name].launches_by_heads = {}

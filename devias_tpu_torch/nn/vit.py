@@ -20,8 +20,12 @@ blocks' four dense layers as w8a8 int8 products (`nn/quant.py`, frozen
 inference only). Given `seq` (a
 `core/dist.py::SPMesh`), the backbone runs sequence-parallel on this
 rank's frames: attention gathers K/V over the seq group
-(`devias_tpu/nn/vit.py:225-249`). Gradients reach the float32 master
-weights through the casts at use; `FastLayerNorm`'s gradient is
+(`devias_tpu/nn/vit.py:225-249`). An `Attention` or `Mlp` whose `tp` is
+set (`core/dist.py::shard_blocks_tp`) holds its part of a block cut
+Megatron-style over a model group and runs it: K1 on its H/t heads, the
+row-parallel sums all-reduced and their biases added once after the sum.
+Gradients reach the float32 master weights through the casts at use;
+`FastLayerNorm`'s gradient is
 autograd's of its forward, the same function as the JAX package's
 hand-written VJP (which exists to save TPU memory).
 """
@@ -37,7 +41,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from devias_tpu_torch.core.dist import SPMesh, gather_kv
+from devias_tpu_torch.core.dist import SPMesh, copy_to_model_group, gather_kv, reduce_from_model_group
 from devias_tpu_torch.kernels.attention import (
     attention_q_kv_reference,
     attention_qkv_reference,
@@ -189,22 +193,38 @@ class Mlp(nn.Module):
         self.approx = dtype == torch.bfloat16 if gelu_approx is None else gelu_approx
         self.dtype = dtype
 
+    tp: Optional[SPMesh] = None  # set by core/dist.py::shard_blocks_tp: fc1's rows, fc2's columns
+
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = self.fc1(x.to(self.dtype))
+        x = x.to(self.dtype)
+        if self.tp is not None:
+            x = copy_to_model_group(x, self.tp)
+        x = self.fc1(x)
         x = F.gelu(x, approximate="tanh" if self.approx else "none")
-        return dropout(self.fc2(x), self.drop, self.training, generator)
+        if self.tp is None:
+            return dropout(self.fc2(x), self.drop, self.training, generator)
+        y = reduce_from_model_group(F.linear(x, self.fc2.weight.to(x.dtype)), self.tp)
+        return dropout(y + self.fc2.bias.to(y.dtype), self.drop, self.training, generator)
 
 
 def _attention_with_dropout(qkv: torch.Tensor, num_heads: int, scale: float, rate: float,
-                            generator: Optional[torch.Generator]) -> torch.Tensor:
+                            generator: Optional[torch.Generator], heads: Optional[Tuple[int, int]] = None
+                            ) -> torch.Tensor:
     """The JAX package's unfused training attention with probability
     dropout (`devias_tpu/nn/vit.py:261-266`): q scaled, q k^T and the
     softmax's input in qkv's dtype, the softmax in float32 cast back,
-    dropout on the probabilities, then the product with v."""
+    dropout on the probabilities, then the product with v. `heads` = (first,
+    total) for a tensor-parallel rank's heads: the mask is drawn for all
+    `total` heads, as one rank would, and this rank's are kept."""
     B, N, C3 = qkv.shape
     q, k, v = qkv.reshape(B, N, 3, num_heads, C3 // (3 * num_heads)).unbind(2)
     attn = torch.einsum("bnhd,bmhd->bhnm", q * scale, k)
-    attn = dropout(attn.float().softmax(dim=-1).to(qkv.dtype), rate, True, generator)
+    probs = attn.float().softmax(dim=-1).to(qkv.dtype)
+    if heads is None:
+        attn = dropout(probs, rate, True, generator)
+    else:
+        keep = _keep_mask((B, heads[1], N, N), 1.0 - rate, generator, qkv.device)[:, heads[0]:heads[0] + num_heads]
+        attn = torch.where(keep, probs / (1.0 - rate), torch.zeros_like(probs))
     return torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(B, N, C3 // 3)
 
 
@@ -238,8 +258,35 @@ class Attention(nn.Module):
         nn.init.zeros_(self.q_bias)
         nn.init.zeros_(self.v_bias)
 
+    tp: Optional[SPMesh] = None  # set by core/dist.py::shard_blocks_tp: qkv's head rows, proj's columns
+
+    def _forward_tp(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """This model rank's heads: its q, k and v rows of the fused qkv
+        (the whole q and v biases sliced, so their gradients sum over the
+        group), K1 on H/t heads, its columns of proj summed over the group,
+        proj's bias added once."""
+        tp = self.tp
+        heads = self.num_heads // tp.model_size
+        C = heads * (self.q_bias.shape[0] // self.num_heads)
+        lo = tp.model_rank * C
+        qv = copy_to_model_group(torch.stack([self.q_bias, self.v_bias]), tp)[:, lo:lo + C]
+        bias = torch.cat([qv[0], torch.zeros_like(qv[0]), qv[1]])
+        qkv = self.qkv(copy_to_model_group(x.to(self.dtype), tp)) + bias.to(self.dtype)
+        if self.training and self.attn_drop > 0.0:
+            out = _attention_with_dropout(qkv, heads, self.scale, self.attn_drop, generator,
+                                          (tp.model_rank * heads, self.num_heads))
+        else:
+            attend = fused_attention_qkv if self.fused else attention_qkv_reference
+            out = attend(qkv, heads, self.scale)
+        y = reduce_from_model_group(F.linear(out, self.proj.weight.to(out.dtype)), tp)
+        return dropout(y + self.proj.bias.to(y.dtype), self.proj_drop, self.training, generator)
+
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 seq: Optional[SPMesh] = None) -> torch.Tensor:
+        if self.tp is not None:
+            if seq is not None:
+                raise NotImplementedError("tensor and sequence parallelism together")
+            return self._forward_tp(x, generator)
         bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
         qkv = self.qkv(x.to(self.dtype)) + bias.to(self.dtype)
         if seq is not None:
@@ -432,9 +479,11 @@ class VideoViT(nn.Module):
         blocks, final norm), without what a subclass adds on top."""
         return [p for name, p in self.named_parameters() if name.split(".", 1)[0] in BACKBONE_MODULES]
 
-    def forward_features(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
-                         seq: Optional[SPMesh] = None,
-                         path_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def embed(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+              seq: Optional[SPMesh] = None) -> torch.Tensor:
+        """Clips to the first block's input: the optional input
+        normalisation, the patch embed, the extra tokens, the positions and
+        their dropout."""
         if self.input_norm:
             if x.dtype == torch.uint8:
                 x = x.to(self.dtype) / 255.0
@@ -461,13 +510,21 @@ class VideoViT(nn.Module):
                 pos = self.pos_embed.to(self.dtype)
             else:
                 pos = self._pos(x.shape[1], x.device)[None]
-        x = dropout(x + pos, self.drop_rate, self.training, generator)
-        remat = self.remat and torch.is_grad_enabled()
+        return dropout(x + pos, self.drop_rate, self.training, generator)
+
+    def run_block(self, blk: Block, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                  path_generator: Optional[torch.Generator] = None, seq: Optional[SPMesh] = None) -> torch.Tensor:
+        """One block, checkpointed under `remat` while grad is enabled."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpointed_block(blk, x, generator, path_generator, seq)
+        return blk(x, generator, path_generator, seq)
+
+    def forward_features(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                         seq: Optional[SPMesh] = None,
+                         path_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.embed(x, generator, seq)
         for blk in self.blocks:
-            if remat:
-                x = checkpointed_block(blk, x, generator, path_generator, seq)
-            else:
-                x = blk(x, generator, path_generator, seq)
+            x = self.run_block(blk, x, generator, path_generator, seq)
         if self.norm is not None:
             x = self.norm(x)
         return x

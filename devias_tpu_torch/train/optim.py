@@ -34,7 +34,7 @@ float32 masters. u is, per `--opt`:
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -109,6 +109,14 @@ class ScheduledOptimizer(torch.optim.Optimizer):
         self.scales = [lr_scale(n, cfg) for n in self.names]
         self.decay = [decays(n, p) for n, p in named]
         self.count = 0
+        # a placement's cuts (`core/dist.py::shard_train_state`): the
+        # buffers of the parameters in `shards` (by index) hold this rank's
+        # slice, and the update runs on that slice; under TP the parameters
+        # flagged in `cut` hold this rank's part, and their squared norms
+        # are summed over `model_group`
+        self.shards: Dict[int, Any] = {}
+        self.cut: Optional[List[bool]] = None
+        self.model_group = None
         for _, p in named:
             for buf in self.BUFFERS:
                 self.state[p][buf] = torch.zeros_like(p, dtype=torch.float32)
@@ -123,6 +131,18 @@ class ScheduledOptimizer(torch.optim.Optimizer):
         count = int(state_dict.pop("count"))
         super().load_state_dict(state_dict)
         self.count = count
+
+    def _global_norm(self, grads) -> torch.Tensor:
+        """The gradients' global norm; under TP the cut parameters' squared
+        norms are summed over the model group first."""
+        norms = torch.stack(torch._foreach_norm(grads))
+        if self.cut is None:
+            return torch.linalg.vector_norm(norms)
+        cut = torch.tensor(self.cut, device=norms.device)
+        sq = norms.square()
+        cut_sq = sq[cut].sum()
+        torch.distributed.all_reduce(cut_sq, group=self.model_group)
+        return (sq[~cut].sum() + cut_sq).sqrt()
 
     def _buffers(self, name: str):
         return [self.state[p][name] for p in self.param_groups[0]["params"]]
@@ -144,7 +164,7 @@ class ScheduledOptimizer(torch.optim.Optimizer):
         cfg = self.cfg
         params = self.param_groups[0]["params"]
         grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None else p.grad.float() for p in params]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = self._global_norm(grads)
         if cfg.clip_grad is not None:
             # optax.clip_by_global_norm, in its order: (g / norm) * clip
             # where norm >= clip
@@ -153,6 +173,9 @@ class ScheduledOptimizer(torch.optim.Optimizer):
             keep = norm < cfg.clip_grad
             grads = [torch.where(keep, g, c) for g, c in zip(grads, clipped)]
         lr, wd = self.lr_fn(self.count), self.wd_fn(self.count)
+        if self.shards:
+            params = [self.shards[i].view(p) if i in self.shards else p for i, p in enumerate(params)]
+            grads = [self.shards[i].view(g) if i in self.shards else g for i, g in enumerate(grads)]
         upd = self._update(params, grads, lr, wd)
         torch._foreach_mul_(upd, [-(lr * s) for s in self.scales])
         torch._foreach_add_(params, upd)

@@ -1,12 +1,15 @@
 """Train state of the port (`devias_tpu/train/state.py`): the model with
 its float32 master parameters, the optimizer, the step count and an
-optional EMA of the parameters. bf16 compute needs no loss scaler.
+optional EMA of the parameters. bf16 compute needs no loss scaler. A
+state placed over a process layout (`core/dist.py::shard_train_state`)
+carries its `Placement`, which says which of these tensors each rank holds
+only a slice of.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -21,6 +24,7 @@ class TrainState:
     step: int = 0
     ema_params: Optional[Dict[str, torch.Tensor]] = None
     ema_decay: float = 0.9999
+    placement: Optional[Any] = None
 
     @classmethod
     def create(cls, model: nn.Module, optimizer: torch.optim.Optimizer, use_ema: bool = False,

@@ -29,9 +29,10 @@ batch ops mix across the global micro-batch, as under jit on the JAX data
 mesh (`core/dist.py::over_data_group`). The multi-task step
 (`make_multi_task_train_step`) runs the student, the frozen CLS teacher
 under `no_grad` and `multi_task_loss`. All four steps share the
-accumulation, the reductions and the optimizer step (`_run_step`). The
-pipeline-parallel variant is not ported yet (`ROADMAP.md` queue 1, item
-17).
+accumulation, the reductions and the optimizer step (`_run_step`), and
+with it the placements of `core/dist.py::shard_train_state` (ZeRO-1,
+FSDP, TP). The slot step also takes a pipeline layout (`pp_mesh`,
+`core/pipeline.py`).
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ from devias_tpu_torch.aug.mixup import MixupConfig, mixup_cutmix
 from devias_tpu_torch.aug.segformer_mix import segformer_frame_masks, segformer_mix_sample
 from devias_tpu_torch.core.dist import (
     SPMesh,
-    broadcast_from_seq_root,
+    broadcast_in_row,
     mean_over_data,
     min_over_data,
     mix_generators,
@@ -57,6 +58,7 @@ from devias_tpu_torch.core.dist import (
     reduce_grads,
     seq_parallel_tokens,
 )
+from devias_tpu_torch.core.pipeline import pipeline_tokens
 from devias_tpu_torch.data.yuv import i420_to_rgb
 from devias_tpu_torch.device import DeviceLike, require_on, resolve_device
 from devias_tpu_torch.losses.slot_loss import (
@@ -89,6 +91,8 @@ class TrainStepConfig:
     # 'yuv420': uint8 I420 planes [B, T, H*3//2, W], unpacked to [0, 1] RGB in
     # the step; needs device_normalize=True
     wire_format: str = "rgb"
+    # GPipe micro-batches of each micro-batch under pp_mesh
+    pp_microbatches: int = 4
 
 
 def to_device(videos: Union[np.ndarray, torch.Tensor], device: torch.device) -> torch.Tensor:
@@ -151,17 +155,17 @@ def mix_clips(videos: torch.Tensor, labels: torch.Tensor, step_cfg: TrainStepCon
     unpacked clips: (videos, labels, fg_mask [B, (H/16)(W/16)], fg_pf
     [B, T/2 (H/16)(W/16)]), the masks zero without a mix. `draws`: one
     dict ({"perm", "keep"} for FAME, and "frame" for the Segformer mix), or
-    one per block of `num_data_shards`. With a `mesh` of more than one seq
-    rank, the mix runs on the seq group's first rank only and its outputs
-    are broadcast to the group, whatever the other ranks' generators
-    hold."""
+    one per block of `num_data_shards`. With a `mesh` whose data rows hold
+    more than one rank (seq, model or pipe), the mix runs on the row's first
+    rank only and its outputs are broadcast to the row, whatever the other
+    ranks' generators hold."""
     B, T, H, W = videos.shape[:4]
     n_sp = (H // 16) * (W // 16)
     if not step_cfg.use_fame and segformer_apply is None:
         zeros = [torch.zeros(B, n, device=videos.device) for n in (n_sp, (T // 2) * n_sp)]
         return (videos, labels, *zeros)
-    seq = mesh is not None and mesh.seq_size > 1
-    if not seq or mesh.seq_rank == 0:
+    row = mesh is not None and mesh.inner[2] > 1
+    if not row or mesh.inner[1] == 0:
         if segformer_apply is not None:
             videos, labels, fg_mask, fg_pf = _segformer_mix(videos, labels, step_cfg, generator, draws,
                                                             segformer_apply)
@@ -171,35 +175,38 @@ def mix_clips(videos: torch.Tensor, labels: torch.Tensor, step_cfg: TrainStepCon
         videos, labels = torch.empty_like(videos), torch.empty_like(labels)
         fg_mask = torch.empty(B, n_sp, device=videos.device)
         fg_pf = torch.empty(B, (T // 2) * n_sp, device=videos.device)
-    if seq:
-        broadcast_from_seq_root([videos, labels, fg_mask, fg_pf], mesh)
+    if row:
+        broadcast_in_row([videos, labels, fg_mask, fg_pf], mesh)
     return videos, labels, fg_mask, fg_pf
 
 
 def slot_loss(model: nn.Module, teacher: nn.Module, videos: torch.Tensor, labels: torch.Tensor,
               loss_cfg: SlotLossConfig, step_cfg: TrainStepConfig, generator: Optional[torch.Generator] = None,
               draws=None, sp_mesh: Optional[SPMesh] = None, dp_mesh: Optional[SPMesh] = None,
-              segformer_apply: Optional[Callable] = None):
+              segformer_apply: Optional[Callable] = None, pp_mesh: Optional[SPMesh] = None):
     """One micro-batch of the slot train step up to its loss: the uint8 or
     I420 unpack, FAME or the Segformer mix (`mix_clips`), the teacher
     under `no_grad` on the mixed clips, the student's forward and
     `devias_slot_loss`. Returns (total loss, the seven metrics detached);
     the caller runs the backward.
 
-    With a layout (`sp_mesh` or `dp_mesh`), every rank passes a `generator`
-    in the same state, and three streams are split from it per data row
-    (`core/dist.py::rank_generators`): FAME's, used on the seq group's
-    first rank only, whose mixed clips, labels and masks are broadcast
-    (GSPMD computes them once; it also keeps `index_add_`'s atomic order on
-    the card from giving ranks different mixes); the backbone's
+    With a layout (`sp_mesh`, `pp_mesh` or `dp_mesh`), every rank passes a
+    `generator` in the same state, and three streams are split from it per
+    data row (`core/dist.py::rank_generators`): FAME's, used on the row's
+    first rank only, whose mixed clips, labels and masks are broadcast to
+    the row (GSPMD computes them once; it also keeps `index_add_`'s atomic
+    order on the card from giving ranks different mixes); the backbone's
     (`seq_parallel_tokens`: token dropout per rank, drop-path shared along
-    seq); and the one of the replicated heads, shared along seq. Every rank
-    of a seq group passes the same clips."""
+    seq; `pipeline_tokens`: the seed of its per-block draws); and the one of
+    the replicated heads, shared along the row. Every rank of a data row
+    passes the same clips. Under `pp_mesh` the backbone runs as a pipeline
+    of `step_cfg.pp_microbatches` micro-batches and the agg block, heads and
+    loss run on its tokens on every pipe rank."""
     if step_cfg.wire_format == "yuv420":
         videos = i420_to_rgb(videos)
     elif step_cfg.device_normalize:
         videos = videos.float() / 255.0
-    mesh = sp_mesh if sp_mesh is not None else dp_mesh
+    mesh = next((m for m in (sp_mesh, pp_mesh, dp_mesh) if m is not None), None)
     fame_gen = backbone_gen = head_gen = generator
     if mesh is not None:
         fame_gen, backbone_gen, head_gen = rank_generators(generator, mesh, videos.device)
@@ -209,6 +216,9 @@ def slot_loss(model: nn.Module, teacher: nn.Module, videos: torch.Tensor, labels
     tokens = None
     if sp_mesh is not None:
         tokens = seq_parallel_tokens(model, videos, sp_mesh, deterministic=False, generator=backbone_gen)
+    elif pp_mesh is not None:
+        tokens = pipeline_tokens(model, videos, pp_mesh, step_cfg.pp_microbatches, deterministic=False,
+                                 generator=backbone_gen)
     student = model(videos, generator=head_gen, tokens=tokens)
     # the teacher pad's batch minimum is the global micro-batch's, as in
     # the JAX step (the reference's DDP ranks take their own)
@@ -250,20 +260,31 @@ def make_slot_train_step(model: nn.Module, teacher: nn.Module, optimizer: torch.
     training: every rank of a seq group calls the step with the same batch
     (see `slot_loss`), the backbone's gradients are summed over the group,
     and a layout of several data rows also averages over the data group.
-    Under either, every rank passes a generator in the same state, and the
-    step's own generator lives on the CPU: the streams are split from host
-    draws, and a card generator passed in makes each micro-batch's draw
-    wait for the card.
+    `pp_mesh` (`core/pipeline.py::make_pp_mesh`) selects pipeline-parallel
+    training: every rank of a data row calls the step with the same batch,
+    the row's pipe ranks each run their stage's blocks over
+    `step_cfg.pp_microbatches` micro-batches (`pipeline_tokens`), and the
+    stages' gradients are summed over the pipe group
+    (`core/dist.py::reduce_stage_grads`). A `dp_mesh` of
+    `make_mesh(model_parallel=t)` trains tensor-parallel once the state is
+    placed with `shard_train_state(..., tp=True)`: the t ranks of a data row
+    pass the same batch. Under any layout every rank passes a generator in
+    the same state, and the step's own generator lives on the CPU: the
+    streams are split from host draws, and a card generator passed in makes
+    each micro-batch's draw wait for the card. A placed state
+    (`state.placement`: ZeRO-1, FSDP, TP) is updated as its placement says
+    (`_run_step`).
 
     Returns the seven loss and accuracy metrics averaged over the
     micro-batches (and the data group), `grad_norm` (before clipping) and,
     with `lr_fn`, `lr` at the step before the update: 0-d device tensors,
     or host floats with `host_metrics=True` (which synchronises)."""
-    if pp_mesh is not None:
-        raise NotImplementedError("the pipeline-parallel step is not ported yet: ROADMAP.md queue 1, item 17 "
-                                  "(parallel modes)")
+    if pp_mesh is not None and sp_mesh is not None:
+        raise ValueError("pp_mesh and sp_mesh are mutually exclusive")
     if sp_mesh is not None and dp_mesh is not None:
         raise ValueError("sp_mesh and dp_mesh are exclusive: a layout with seq ranks is an sp_mesh")
+    if pp_mesh is not None and dp_mesh is not None:
+        raise ValueError("pp_mesh and dp_mesh are exclusive: a layout with pipe ranks is a pp_mesh")
     if dp_mesh is not None and dp_mesh.seq_size > 1:
         raise ValueError(f"dp_mesh has {dp_mesh.seq_size} seq ranks; pass it as sp_mesh")
     if step_cfg.wire_format not in ("rgb", "yuv420"):
@@ -274,7 +295,7 @@ def make_slot_train_step(model: nn.Module, teacher: nn.Module, optimizer: torch.
     require_on(model, dev)
     require_on(teacher, dev, "teacher")
     teacher.eval().requires_grad_(False)
-    mesh = sp_mesh if sp_mesh is not None else dp_mesh
+    mesh = next((m for m in (sp_mesh, pp_mesh, dp_mesh) if m is not None), None)
     # a layout's step splits its streams from host draws (`slot_loss`); a
     # card generator would make each such draw wait for the card
     own_generator = _layout_generator(mesh, dev)
@@ -287,7 +308,7 @@ def make_slot_train_step(model: nn.Module, teacher: nn.Module, optimizer: torch.
 
         def micro(sl, gen, d):
             return slot_loss(model, teacher, videos[sl], labels[sl], loss_cfg, step_cfg, gen, d, sp_mesh, dp_mesh,
-                             segformer_apply)
+                             segformer_apply, pp_mesh)
 
         return _run_step(state, optimizer, model, videos.shape[0], U, micro, own_generator if generator is None
                          else generator, draws, mesh, METRIC_NAMES, lr_fn, host_metrics)
@@ -314,13 +335,19 @@ def _run_step(state: TrainState, optimizer: torch.optim.Optimizer, model: nn.Mod
     the gradients reduced and the metrics averaged over the data group;
     both divided by U; then `lr` (with `lr_fn`, at the step before the
     update), one optimizer step (`grad_norm`, before clipping), the EMA
-    and the step count."""
+    and the step count. A placed state (`core/dist.py::Placement`) has its
+    full parameters gathered before the first micro-batch (FSDP), and after
+    the update the updated slices all-gathered (ZeRO-1) or the full
+    parameters freed (FSDP), before the EMA."""
     if state.optimizer is not optimizer:
         raise ValueError("the state holds another optimizer than the step was made with")
     if batch % U:
         raise ValueError(f"batch {batch} is not a multiple of update_freq {U}")
     draws = _micro_draws(draws, U)
     mb = batch // U
+    placement = state.placement
+    if placement is not None:
+        placement.gather_params()
     model.train()
     optimizer.zero_grad(set_to_none=True)
     sums = None
@@ -341,6 +368,8 @@ def _run_step(state: TrainState, optimizer: torch.optim.Optimizer, model: nn.Mod
         metrics["lr"] = torch.tensor(lr_fn(state.step), dtype=torch.float32)
     metrics["grad_norm"] = optimizer.step()
     optimizer.zero_grad(set_to_none=True)
+    if placement is not None:
+        placement.after_update()
     state.update_ema()
     state.step += 1
     if host_metrics:

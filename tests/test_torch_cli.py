@@ -6,13 +6,18 @@ both CLIs in float32 (the CLIs build bf16 models; the test patches each
 one's `build_models` dtype in this process); (c) a CPU train run, and an
 exact resume: one epoch, a stop, then --auto_resume for the second, equals
 two epochs in one run, bitwise in the parameters and in log.txt and
-test/0.txt (train_time_s aside); (d) the choice of K1 by head dim, which
-lets `--smoke_tiny` (64 wide, 4 heads: head dim 16) run on the card with
-the plain attention while K1's wrapper keeps refusing that head dim."""
+test/0.txt (train_time_s aside), and a train run with each of --pp_stages
+2, --tp_size 2, --zero1 and --fsdp over two gloo processes; (d) the choice
+of K1 by head dim, which lets `--smoke_tiny` (64 wide, 4 heads: head dim
+16) run on the card with the plain attention while K1's wrapper keeps
+refusing that head dim."""
 
 import functools
 import json
 import os
+import socket
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -57,9 +62,38 @@ def test_flag_parity():
 
 
 @pytest.mark.parametrize("flags", [["--pp_stages", "2"], ["--tp_size", "2"], ["--zero1"], ["--fsdp"]])
-def test_unported_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(cli.get_args(BASE + ["--device", "cpu"] + flags))
+def test_unported_flags_raise(flags, filelists, tmp_path):
+    """The parallel flags the port once refused now train: the tiny CPU run
+    with each over two gloo processes (a pipe or model group of two, or two
+    data rows whose state is cut in halves) trains 2 steps, validates, tests
+    and writes a checkpoint of the full, unsharded tensors."""
+    out = tmp_path / "out"
+    argv = BASE + ["--device", "cpu", "--data_path", filelists, "--epochs", "1", "--max_steps_per_epoch", "2",
+                   "--mask_model", "FAME", "--model_ema", "--output_dir", str(out)] + flags
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    code = f"from devias_tpu_torch.cli import run_slot_finetuning as c\nc.main(c.get_args({argv!r}))\n"
+    procs = [subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, env={**os.environ, "DEVIAS_TPU_COORDINATOR": f"127.0.0.1:{port}",
+                                              "DEVIAS_TPU_NUM_PROCS": "2", "DEVIAS_TPU_PROC_ID": str(r),
+                                              "OMP_NUM_THREADS": "2"})
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=180)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], outs
+    with open(out / "log.txt") as f:
+        records = [json.loads(line) for line in f]
+    assert records[0]["n_steps"] == 2 and np.isfinite(records[0]["train_loss"]) and "val_acc1" in records[0]
+    assert os.path.exists(out / "test" / "0.txt")
+    ckpt = torch.load(out / "ckpt" / "checkpoint-0.pth", weights_only=True)
+    fresh = cli.build_models(cli.get_args(argv), torch.device("cpu"))[0]
+    assert ckpt["step"] == 2
+    assert {k: v.shape for k, v in ckpt["model"].items()} == {k: v.shape for k, v in fresh.state_dict().items()}
+    assert {k: v.shape for k, v in ckpt["model_ema"].items()} == {k: v.shape for k, v in fresh.named_parameters()}
 
 
 def _train_with(flag, filelists, out):

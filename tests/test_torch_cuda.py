@@ -50,9 +50,10 @@ def _inputs(card, B, N, H, seed):
 # (B, N, H): each edge of the kernels' 128-row tiles (under one tile, one
 # short of it, exactly one, one over), the student's 1568 and the teacher's
 # 1569 tokens, the multi-task student's 1570 (last q and key tiles of 34
-# rows), and the small shapes
+# rows), the tensor-parallel student's 6 of 12 heads at 1568 tokens, and
+# the small shapes
 SHAPES = [(2, 64, 2), (2, 77, 3), (1, 1569, 12), (3, 9, 1), (2, 127, 2), (2, 128, 2), (1, 129, 3),
-          (1, 1568, 12), (2, 1570, 12)]
+          (1, 1568, 12), (2, 1570, 12), (2, 1568, 6)]
 
 
 @pytest.mark.parametrize("B,N,H", SHAPES)

@@ -194,8 +194,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     make_slot_train_step(model, teacher, opt, SlotLossConfig(5, 4), device="cpu")
     with pytest.raises(ValueError, match="not supported"):
         make_optimizer(model, OptimConfig(opt="lamb"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_slot_train_step(model, teacher, opt, SlotLossConfig(5, 4), pp_mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        make_slot_train_step(model, teacher, opt, SlotLossConfig(5, 4), pp_mesh=object(), sp_mesh=object(),
+                             device="cpu")
     with pytest.raises(ValueError, match="exclusive"):
         make_slot_train_step(model, teacher, opt, SlotLossConfig(5, 4), sp_mesh=object(), dp_mesh=object(),
                              device="cpu")
