@@ -27,7 +27,8 @@ prints one JSON line, and the first failure exits non-zero:
    with CUDA events. kernel_tp: the three forms of K1 at the
    tensor-parallel shape, 6 of the 12 heads at N = 1568 (o within
    KERNEL_TOL of the f32 plain version and PLAIN_TOL of the bf16 one, m, l
-   and the backward within theirs), timed beside the plain versions.
+   and the backward within theirs), timed beside the plain versions and
+   `scaled_dot_product_attention` at 6 heads.
    kernel_q_kv: K2-fwd (`fused_attention_q_kv`), K2-fwd stats and K2-bwd
    at (Nq, Nk) = (392, 1568) (four shards), (1568, 1568) (the one-card SP
    step) and (77, 301) (ragged), within K1's tolerances, timed at the
@@ -205,6 +206,22 @@ prints one JSON line, and the first failure exits non-zero:
    card, not a throughput), peak memory, and the placed state's resident
    bytes against the replicated state's. Then `python -m
    devias_tpu_torch.dryrun`'s `dryrun_multichip(2)` on the card.
+29. overfit: `devias_tpu_torch.scripts.full_scale_overfit.main` at its
+   defaults (200 steps of the slot step with the CLS teacher memorising 12
+   fixed clips; the JAX script's asserts): the loss at steps 0 and 199,
+   the accuracy at 199, the first step at 1.0, ms per step, 12 launches of
+   each K1 form per step.
+30. health_run: `devias_tpu_torch.scripts.health_run.main` at its
+   defaults (2000 HVU steps with FAME-HVU, the cosine schedule and EMA
+   0.999 on 60 synthetic clips held on the card; the action slot must read
+   the motion and the scene slot the background at 0.85 or more): losses,
+   steps/s, the probe's readings of the parameters and the EMA, the
+   held-out pair, peak memory; 12 K1-fwd stats and 12 K1-bwd per step, 12
+   K1-fwd per probe batch.
+31. profile_step: `devias_tpu_torch.scripts.profile_step.main` (3 + 5
+   steps of the flagship FAME step, 5 traced): the card's ms per step by
+   kernel family from the exported trace. The family table and
+   `profile_breakdown` of the other profile phases live in that module.
 
 Then a `script` line with the script's own seconds, one
 `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
@@ -279,14 +296,6 @@ TRAIN_WATCH = ("blocks.0.attn.qkv.weight", "blocks.11.mlp.fc2.weight", "agg_bloc
 TRAIN_STEPS = 3
 TRAIN_WINDOW = 20
 PROFILE_STEPS = 2
-# kernel classes of the profile, by substring of the kernel's name, first match
-KERNEL_CLASSES = (
-    ("attention (port's K1 and K2 kernels)", ("attention_fwd_kernel", "attention_bwd_")),
-    ("GEMM (cuBLAS)", ("nvjet", "gemm", "sm90_xmma", "cutlass", "gemv", "splitKreduce")),
-    ("copy", ("Memcpy", "Memset", "copy_", "CatArrayBatched")),
-    ("reduction", ("reduce_kernel", "Reduce", "softmax", "norm")),
-    ("elementwise", ("elementwise", "vectorized")),
-)
 N_BATCHES = 3
 # ~4 s of validation and ~8 s of final_test at the rates measured so far
 THROUGHPUT_BATCHES = 120
@@ -582,8 +591,9 @@ def phase_kernel_tp(attn):
     of the plain version's RMS in f32 and PLAIN_TOL of it in bf16 (one bf16
     ulp of an output above 0.25 is 0.047 of the RMS here), as phase_kernel
     holds K1-fwd; m and l within their tolerances, the backward's dq, dk,
-    dv within BWD_TOL; each timed beside its plain version. Returns
-    {kernel: timing} for the kernels line."""
+    dv within BWD_TOL; each timed beside its plain version and
+    `scaled_dot_product_attention` at 6 heads (forward, or forward +
+    backward for K1-bwd). Returns {kernel: timing} for the kernels line."""
     N, heads = 1568, TP_HEADS
     rng = np.random.default_rng(40)
     dev = torch.device("cuda")
@@ -610,17 +620,23 @@ def phase_kernel_tp(attn):
     del eo, em, el, po, pm, pl, plain_d, exact_d
     torch.cuda.empty_cache()
     timing = {}
-    for name, fn, plain, bound in (
+    q, k, v = qkv.view(B, N, 3, heads, D).permute(2, 0, 3, 1, 4)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, scale=SCALE)
+
+    for name, fn, plain, library, bound in (
             ("K1-fwd", lambda: attn.fused_attention_qkv(qkv, heads, SCALE),
-             lambda: attn.attention_qkv_reference(qkv, heads, SCALE), attention_bound(N, heads=heads)),
+             lambda: attn.attention_qkv_reference(qkv, heads, SCALE), sdpa, attention_bound(N, heads=heads)),
             ("K1-fwd-stats", lambda: attn.attention_qkv_fwd_stats(qkv, heads, SCALE),
-             lambda: attn.attention_qkv_fwd_stats_reference(qkv, heads, SCALE),
+             lambda: attn.attention_qkv_fwd_stats_reference(qkv, heads, SCALE), sdpa,
              attention_bound(N, stats=True, heads=heads)),
             ("K1-bwd", lambda: attn.attention_qkv_bwd(qkv, o, do, m, l, heads, SCALE),
              lambda: attn.attention_qkv_bwd_reference(qkv, o, do, m, l, heads, SCALE),
-             attention_bwd_bound(N, heads=heads))):
+             _sdpa_fwd_bwd(q, k, v, do.view(B, N, heads, D).transpose(1, 2)), attention_bwd_bound(N, heads=heads))):
         timing[name] = {"heads": heads, "N": N, "ms": time_ms(fn, 20), "plain_ms": time_ms(plain, 3),
-                        "bound_ms": bound[0], "bound_by": bound[1], "max_abs_err": max_abs[name]}
+                        "library_ms": time_ms(library, 20), "bound_ms": bound[0], "bound_by": bound[1],
+                        "max_abs_err": max_abs[name]}
     row = {"phase": "kernel_tp", "heads": heads, "N": N, "err_rms": errs, "finite": finite, "timing": timing,
            "tol_rms": {"o_vs_plain": PLAIN_TOL, "o_vs_f32": KERNEL_TOL, "m": STATS_M_TOL, "l": STATS_L_TOL,
                        "bwd": BWD_TOL}}
@@ -632,7 +648,7 @@ def phase_kernel_tp(attn):
     ok &= max(e["K1-bwd"]["vs_plain"] + e["K1-bwd"]["vs_f32"]) <= BWD_TOL
     if not ok:
         fail(f"K1 at {heads} heads beyond its limits: {row}")
-    del qkv, do, out, o, m, l, dqkv
+    del qkv, do, out, o, m, l, dqkv, q, k, v
     torch.cuda.empty_cache()
     return timing
 
@@ -1095,57 +1111,6 @@ def vit_flops_per_clip(N: int, C: int = 768, depth: int = 12) -> float:
     return depth * (24 * N * C * C + 4 * N * N * C)
 
 
-def profile_breakdown(fn, n: int) -> dict:
-    """Run fn() n times under torch.profiler. Per call: host-clock ms, the
-    device's busy ms (union of its kernel and copy intervals) and idle
-    share, device ms by KERNEL_CLASSES, the ten kernels with the most
-    device time and the ten host operators with the most self CPU time
-    (under the profiler, which adds its own to each)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    spans, by_name = [], {}
-    for e in prof.events():
-        # GPU-side annotation ranges (`Optimizer.step#...`) span kernels
-        # counted on their own
-        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
-            continue
-        start, end = e.time_range.start, e.time_range.end
-        spans.append((start, end))
-        total, count = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (total + (end - start) / 1e3, count + 1)
-    busy_us, reach = 0.0, None
-    for start, end in sorted(spans):
-        if reach is None or start > reach:
-            busy_us += end - start
-            reach = end
-        elif end > reach:
-            busy_us += end - reach
-            reach = end
-    classes = {label: 0.0 for label, _ in KERNEL_CLASSES}
-    classes["other"] = 0.0
-    for name, (ms, _) in by_name.items():
-        label = next((lb for lb, keys in KERNEL_CLASSES if any(k in name for k in keys)), "other")
-        classes[label] += ms / n
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    busy_ms = busy_us / 1e3 / n
-    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
-                  key=lambda e: -e.self_cpu_time_total)[:10]
-    return {"calls": n, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms if spans else None,
-            "device_ms_by_class": classes,
-            "top_kernels": [{"name": name[:120], "ms": ms / n, "launches": c / n} for name, (ms, c) in top],
-            "top_host_ops": [{"name": e.key[:80], "self_cpu_ms": e.self_cpu_time_total / 1e3 / n,
-                              "calls": e.count / n} for e in host]}
-
-
 def _train_parts():
     from devias_tpu_torch.aug import FAMEConfig
     from devias_tpu_torch.losses import SlotLossConfig
@@ -1157,6 +1122,7 @@ def _train_parts():
 
 def phase_train(attn, card):
     from devias_tpu_torch.nn import create_model
+    from devias_tpu_torch.scripts.profile_step import profile_breakdown
     from devias_tpu_torch.train import OptimConfig, TrainState, make_optimizer, make_slot_train_step
 
     t0 = time.perf_counter()
@@ -1269,6 +1235,7 @@ def phase_sp_train(attn, card):
 
     from devias_tpu_torch.core.dist import make_sp_mesh, maybe_init_distributed, reduce_backbone_grads, seq_parallel_tokens
     from devias_tpu_torch.nn import create_model
+    from devias_tpu_torch.scripts.profile_step import profile_breakdown
     from devias_tpu_torch.train import OptimConfig, TrainState, make_optimizer, make_slot_train_step
     from devias_tpu_torch.train.step import slot_loss, to_device
 
@@ -1927,6 +1894,119 @@ def phase_parallel_modes(attn, card):
         fail(f"dryrun_multichip({PARALLEL_RANKS}): {exc}")
     emit({"phase": "dryrun", "card": card, "processes": PARALLEL_RANKS, "seconds": time.perf_counter() - t0})
     return total
+
+
+K1_FORMS = ("K1-fwd", "K1-fwd-stats", "K1-bwd")
+
+
+def _check_k1(phase: str, counts: dict, want: dict) -> None:
+    """Fail unless the K1 forms launched `want` times and no other kernel ran."""
+    full = {name: want.get(name, 0) for name in counts}
+    if counts != full:
+        fail(f"{phase} launched {counts}; want {full}")
+
+
+def phase_overfit(attn, card):
+    """`python -m devias_tpu_torch.scripts.full_scale_overfit` at its
+    defaults, in-process: 200 steps of the flagship slot step (the CLS
+    teacher, no FAME) memorising 12 fixed clips, its asserts those of
+    `scripts/full_scale_overfit.py:63-65`. Prints the loss at steps 0 and
+    199, the accuracy at 199, the first step whose accuracy reached 1.0, ms
+    per step from step 1 on, and K1's launches: 12 of each form per step.
+    Returns the K1 counts."""
+    from devias_tpu_torch.scripts import full_scale_overfit as overfit
+
+    attn.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        result = overfit.main([])
+    except AssertionError as exc:
+        fail(f"overfit: an assert of the JAX script failed: {exc!r}")
+    seconds = time.perf_counter() - t0
+    counts = attn.launch_counts()
+    (_, m0), (s_last, m_last) = result["history"][0], result["history"][-1]
+    emit({"phase": "overfit", "card": card, "steps": overfit.STEPS, "clips": overfit.B, "loss_step0": m0["loss"],
+          "loss_last": m_last["loss"], "acc_last": m_last["class_acc"], "last_step": s_last,
+          "first_step_acc_1": result["first_full_acc_step"], "ms_per_step": result["ms_per_step"],
+          "wall_s": result["wall_s"], "seconds": seconds, "launches": counts})
+    _check_k1("overfit", counts, {name: 12 * overfit.STEPS for name in K1_FORMS})
+    del result
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_health_run(attn, card):
+    """`python -m devias_tpu_torch.scripts.health_run` at its defaults,
+    in-process: 2000 HVU steps with FAME-HVU, the cosine schedule and the
+    EMA on the 60-clip pool held on the card, then the disentanglement
+    probe; its asserts those of `scripts/health_run.py:213-225`. Prints the
+    loss at steps 0 and 1999, steps/s, the four readings of the parameters
+    and of the EMA, and of the EMA with its share of the initial weights
+    taken out (read after the counts), the held-out pair, peak memory and
+    K1's launches: 12
+    stats forwards and 12 backwards per step, and 12 no-stats forwards per
+    probe batch of 12 (the pool twice, the held-out clips once). Returns
+    the K1 counts."""
+    from devias_tpu_torch.scripts import health_run
+
+    torch.cuda.reset_peak_memory_stats()
+    attn.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        result = health_run.main([])
+    except AssertionError as exc:
+        fail(f"health_run: an assert of the JAX script failed: {exc!r}")
+    seconds = time.perf_counter() - t0
+    counts = attn.launch_counts()
+    (_, m0), (s_last, m_last) = result["history"][0], result["history"][-1]
+    steps, pool = s_last + 1, 5 * health_run.N_MOTION * health_run.N_SCENE
+    # the EMA holds decay^steps of the initial weights (0.999^2000 = 0.135):
+    # the probe of the EMA with that share taken out, (ema - share * init) /
+    # (1 - share), on the same pool; not a launch of the run
+    state = result["state"]
+    share = state.ema_decay ** state.step
+    unbiased, init = health_run.ema_model(state), dict(health_run.health_model("cuda").named_parameters())
+    with torch.no_grad():
+        for name, p in unbiased.named_parameters():
+            p.sub_(share * init[name]).div_(1 - share)
+    videos, action, scene = health_run.make_pool(np.random.default_rng(0), 5)
+    ema_unbiased = health_run.slot_accuracies(unbiased, torch.from_numpy(videos).cuda(), action, scene,
+                                              health_run.N_MOTION)
+    del unbiased, init, videos
+    emit({"phase": "health_run", "card": card, "steps": steps, "clips": health_run.B, "pool": pool,
+          "loss_step0": m0["loss"], "loss_last": m_last["loss"], "last_step": s_last, "metrics_last": m_last,
+          "steps_per_s": result["steps_per_s"], "train": result["train"], "ema": result["ema"],
+          "ema_start_share": share, "ema_without_start": ema_unbiased,
+          "held_out": {k: result["held_out"][k] for k in ("action_slot_motion", "scene_slot_scene")},
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "seconds": seconds, "launches": counts})
+    probe_batches = 2 * pool // health_run.B + 1
+    _check_k1("health_run", counts, {"K1-fwd": 12 * probe_batches, "K1-fwd-stats": 12 * steps,
+                                     "K1-bwd": 12 * steps})
+    del result
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_profile_step(attn, card):
+    """`python -m devias_tpu_torch.scripts.profile_step --out DIR` at its
+    other defaults: 3 warm-up steps of the flagship FAME step, then 5 under
+    `profile_trace`, and the trace's aggregation. Prints the card's ms per
+    step and ms per step by kernel family; K1 launches 12 of each form per
+    step. Returns the K1 counts."""
+    from devias_tpu_torch.scripts import profile_step
+
+    with tempfile.TemporaryDirectory() as out:
+        attn.reset_launch_counts()
+        report = profile_step.main(["--out", out])
+        counts = attn.launch_counts()
+    steps = report["steps"]
+    emit({"phase": "profile_step", "card": card, "steps": steps, "device_ms_per_step": report["device_ms_per_step"],
+          "ms_per_step_by_family": report["ms_per_step_by_family"], "tail_ms_per_step": report["tail_ms_per_step"],
+          "top5": report["top"][:5], "launches": counts})
+    if not report["device_ms_per_step"] > 0:
+        fail(f"profile_step: the trace holds no kernel on the card: {report}")
+    _check_k1("profile_step", counts, {name: 12 * (profile_step.WARMUP_STEPS + steps) for name in K1_FORMS})
+    return counts
 
 
 # the hat phase: Kinetics-HAT assets, one version dir of three splits of
@@ -2886,6 +2966,7 @@ def phase_int8_teacher(attn, card):
     the same inputs, within INT8_DOT_TOL relative. Returns the K1 counts."""
     from devias_tpu_torch.nn import create_model
     from devias_tpu_torch.nn.quant import int8_dot
+    from devias_tpu_torch.scripts.profile_step import profile_breakdown
 
     videos = torch.from_numpy(np.random.default_rng(5).standard_normal(CLIPS, dtype=np.float32)).cuda()
     logits, ms, profiles, total = {}, {}, {}, None
@@ -3215,6 +3296,7 @@ def phase_segformer_train(attn, card):
     from devias_tpu_torch.aug import FAMEConfig, segformer_frame_masks
     from devias_tpu_torch.nn import create_model
     from devias_tpu_torch.nn.segformer import create_segformer, segformer_b3
+    from devias_tpu_torch.scripts.profile_step import profile_breakdown
     from devias_tpu_torch.train import TrainStepConfig
     from devias_tpu_torch.train.step import slot_loss
 
@@ -3403,13 +3485,17 @@ def main() -> int:
     seg_launches = phase_segformer_train(attn, card)
     seg_cli_launches = phase_segformer_cli(attn, card)
     parallel_launches = phase_parallel_modes(attn, card)
+    overfit_launches = phase_overfit(attn, card)
+    health_launches = phase_health_run(attn, card)
+    profile_launches = phase_profile_step(attn, card)
 
     def launches(name):
         return sum(c[name] for c in (train_launches, sp_launches, cli_launches, dp_launches, hat_launches,
                                      hvu_launches, hvu_cli_launches, class_launches, class_cli_launches,
                                      ds_launches, ds_cli_launches, mt_launches, mt_cli_launches, options_launches,
                                      attn_drop_launches, int8_launches, options_cli_launches, real_launches,
-                                     seg_launches, seg_cli_launches, parallel_launches))
+                                     seg_launches, seg_cli_launches, parallel_launches, overfit_launches,
+                                     health_launches, profile_launches))
 
     def at_1570(t):
         return {k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}

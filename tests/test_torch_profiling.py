@@ -6,7 +6,12 @@ on the CPU:
 - `profile_trace` writes a Chrome trace of a CPU block, and nothing with
   an empty directory;
 - `python -m devias_tpu_torch.dryrun 2 --device cpu` (the tiny models over
-  two gloo processes) exits 0 within 40 s and prints every mode line."""
+  two gloo processes) exits 0 within 40 s and prints every mode line;
+- `scripts/profile_step.py`'s family table classifies the port's kernel
+  names as `chip_smoke.py`'s table did before it moved there, and its
+  aggregation of a small Chrome trace gives family sums equal to the
+  device total, the top kernels' launches per step and the tail grouped
+  by name prefix."""
 
 import json
 import os
@@ -69,3 +74,65 @@ def test_dryrun_prints_every_mode():
         hits = [ln for ln in lines if ln.startswith(f"dryrun_multichip(2): {mode}")]
         assert len(hits) == 1 and hits[0].endswith(" ok"), (mode, proc.stdout)
     assert seconds < 40, seconds
+
+
+@pytest.mark.parametrize("name,family", [
+    ("attention_fwd_kernel<1, true>", "attention (port's K1 and K2 kernels)"),
+    ("attention_bwd_dq_kernel", "attention (port's K1 and K2 kernels)"),
+    ("attention_bwd_dkdv_kernel", "attention (port's K1 and K2 kernels)"),
+    ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NNT", "GEMM (cuBLAS)"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "GEMM (cuBLAS)"),
+    ("Memcpy DtoD (Device -> Device)", "copy"),
+    ("Memset (Device)", "copy"),
+    ("void at::native::(anonymous namespace)::CatArrayBatchedCopy<float>", "copy"),
+    ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float>>", "reduction"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<float>>", "elementwise"),
+    ("patch_embed_kernel", "other"),
+])
+def test_kernel_families_are_chip_smokes(name, family):
+    from devias_tpu_torch.scripts.profile_step import kernel_class
+
+    assert kernel_class(name) == family
+
+
+def _kernel(name, dur, cat="kernel"):
+    return {"ph": "X", "cat": cat, "name": name, "dur": dur, "ts": 0, "pid": 0, "tid": 7}
+
+
+def test_aggregate_reads_a_chrome_trace(tmp_path, capsys):
+    from devias_tpu_torch.scripts.profile_step import KERNEL_CLASSES, aggregate
+
+    steps = 2
+    ew = "void at::native::vectorized_elementwise_kernel<4, at::native::{}<float>>(int, float*)"
+    events = ([_kernel("attention_fwd_kernel", 300.0)] * 4 + [_kernel("nvjet_tst_64x8_v", 150.0)] * 6
+              + [_kernel("Memcpy HtoD (Pageable -> Device)", 40.0, "gpu_memcpy")] * 2
+              + [_kernel(ew.format("AddFunctor"), 5.0), _kernel(ew.format("MulFunctor"), 7.0)]
+              + [_kernel(ew.format("FillFunctor"), 3.0)] * 2
+              + [_kernel("(anonymous namespace)::attention_bwd_prepass_kernel(k1::Strided<float const>, int)", 1.0),
+                 _kernel("nvjet_tst_128x160_64x5_2x4_h_bz_NTT", 2.0), _kernel("nvjet_tst_64x8_64x16_4x1_v_bz", 3.0)]
+              # host work and annotations are not the card's
+              + [{"ph": "X", "cat": "cpu_op", "name": "aten::mm", "dur": 999.0},
+                 {"ph": "X", "cat": "gpu_user_annotation", "name": "Optimizer.step#FusedAdamW", "dur": 999.0},
+                 {"ph": "M", "name": "process_name", "args": {"name": "python"}}])
+    os.makedirs(tmp_path / "older")
+    with open(tmp_path / "older" / "trace.json", "w") as f:
+        json.dump({"traceEvents": events[:1]}, f)
+    os.utime(tmp_path / "older" / "trace.json", (0, 0))
+    with open(tmp_path / "trace.json", "w") as f:
+        json.dump({"traceEvents": events}, f)
+
+    report = aggregate(str(tmp_path), steps, top=3)
+    total = (4 * 300 + 6 * 150 + 2 * 40 + 5 + 7 + 2 * 3 + 1 + 2 + 3) / 1000 / steps
+    assert report["trace"] == str(tmp_path / "trace.json")
+    assert report["device_ms_per_step"] == pytest.approx(total)
+    assert sum(report["ms_per_step_by_family"].values()) == pytest.approx(total)
+    assert set(report["ms_per_step_by_family"]) <= {label for label, _ in KERNEL_CLASSES} | {"other"}
+    assert report["ms_per_step_by_family"]["GEMM (cuBLAS)"] == pytest.approx((6 * 150 + 2 + 3) / 1000 / steps)
+    assert [(t["name"], t["launches"]) for t in report["top"]] == [
+        ("attention_fwd_kernel", 2.0), ("nvjet_tst_64x8_v", 3.0), ("Memcpy HtoD (Pageable -> Device)", 1.0)]
+    assert report["tail"] == [
+        {"prefix": "at::native::vectorized_elementwise_kernel", "ms": pytest.approx(0.009), "launches": 2.0},
+        {"prefix": "nvjet_tst", "ms": pytest.approx(0.0025), "launches": 1.0},
+        {"prefix": "attention_bwd_prepass_kernel", "ms": pytest.approx(0.0005), "launches": 0.5}]
+    assert report["tail_ms_per_step"] == pytest.approx(0.012)
+    assert "device total: 1.10 ms/step over 2 steps" in capsys.readouterr().out
