@@ -211,9 +211,10 @@ prints one JSON line, and the first failure exits non-zero:
    fixed clips; the JAX script's asserts): the loss at steps 0 and 199,
    the accuracy at 199, the first step at 1.0, ms per step, 12 launches of
    each K1 form per step.
-30. health_run: `devias_tpu_torch.scripts.health_run.main` at its
-   defaults (2000 HVU steps with FAME-HVU, the cosine schedule and EMA
-   0.999 on 60 synthetic clips held on the card; the action slot must read
+30. health_run: `devias_tpu_torch.scripts.health_run.main` with
+   `--steps 1000` (HEALTH_STEPS, half its default, for this script's time
+   limit; at its defaults otherwise: HVU steps with FAME-HVU, the cosine
+   schedule and EMA 0.999 on 60 synthetic clips held on the card; the action slot must read
    the motion and the scene slot the background at 0.85 or more): losses,
    steps/s, the probe's readings of the parameters and the EMA, the
    held-out pair, peak memory; 12 K1-fwd stats and 12 K1-bwd per step, 12
@@ -222,6 +223,31 @@ prints one JSON line, and the first failure exits non-zero:
    steps of the flagship FAME step, 5 traced): the card's ms per step by
    kernel family from the exported trace. The family table and
    `profile_breakdown` of the other profile phases live in that module.
+32. layerscale_train: phase 5's step with LayerScale (`init_values` 0.1)
+   and a learned `pos_embed` on the student, AdamW with layer decay 0.75:
+   counted steps (12 of each K1 form), timed ones, peak memory; then
+   layerscale_vs_plain on 2 clips, the gammas' and `pos_embed`'s
+   gradients finite and non-zero.
+33. geometry_eval: a SlotViT-B of 32x32 patches (392 tokens), a 2x MLP, no
+   q/v biases, logit scale 0.1 (applied to q before K1, which folds only a
+   power of two) and eps 1e-5: 12 K1-fwd at N = 392, its logits against
+   the plain attention's; block 0's `Attention(return_attn=True)` of the
+   flagship student: no K1, `out` against K1's, rows of the
+   probabilities summing to 1.
+34. int8_student: the flagship student's forward in bf16 and with
+   `int8_dense` (the w8a8 student): ms each, the logits' largest
+   difference and cosine.
+35. agg_options: an agg block of 8 heads x 96, a 2x feed-forward, both
+   dropouts at 0.1, no final norm and 'sine1d' key positions on the
+   student's tokens: training forward and backward, eval, the dropout
+   keep share, and the eval output against the port's float32 CPU run.
+36. yuv_wire: the CLI's loader on mp4 files with `wire_format='yuv420'`
+   and RGB (clips/s, bytes per clip), the card's `i420_to_rgb` against
+   cv2, one slot step on the I420 clips with `device_normalize`.
+37. kill_resume: the CLI at full width for 3 epochs of 2 steps in
+   processes of `tests/_torch_kill_resume_worker.py`, one SIGKILLed in
+   epoch 2 and relaunched: train records and final checkpoint bitwise
+   equal to an uninterrupted run's.
 
 Then a `script` line with the script's own seconds, one
 `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
@@ -1935,12 +1961,15 @@ def phase_overfit(attn, card):
     return counts
 
 
+HEALTH_STEPS = 1000  # half the script's default 2000, for the script's time limit
+
+
 def phase_health_run(attn, card):
-    """`python -m devias_tpu_torch.scripts.health_run` at its defaults,
-    in-process: 2000 HVU steps with FAME-HVU, the cosine schedule and the
+    """`python -m devias_tpu_torch.scripts.health_run --steps HEALTH_STEPS`,
+    in-process (its other defaults): HVU steps with FAME-HVU, the cosine schedule and the
     EMA on the 60-clip pool held on the card, then the disentanglement
     probe; its asserts those of `scripts/health_run.py:213-225`. Prints the
-    loss at steps 0 and 1999, steps/s, the four readings of the parameters
+    loss at the first and last steps, steps/s, the four readings of the parameters
     and of the EMA, and of the EMA with its share of the initial weights
     taken out (read after the counts), the held-out pair, peak memory and
     K1's launches: 12
@@ -1953,14 +1982,14 @@ def phase_health_run(attn, card):
     attn.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        result = health_run.main([])
+        result = health_run.main(["--steps", str(HEALTH_STEPS)])
     except AssertionError as exc:
         fail(f"health_run: an assert of the JAX script failed: {exc!r}")
     seconds = time.perf_counter() - t0
     counts = attn.launch_counts()
     (_, m0), (s_last, m_last) = result["history"][0], result["history"][-1]
     steps, pool = s_last + 1, 5 * health_run.N_MOTION * health_run.N_SCENE
-    # the EMA holds decay^steps of the initial weights (0.999^2000 = 0.135):
+    # the EMA holds decay^steps of the initial weights (0.999^1000 = 0.368):
     # the probe of the EMA with that share taken out, (ema - share * init) /
     # (1 - share), on the same pool; not a launch of the run
     state = result["state"]
@@ -3425,6 +3454,484 @@ def phase_convert(attn, card, cli, data: str, out: str, top1: float):
     return counts
 
 
+# ---------------------------------------------------------------- the last model options
+
+LS_KW = dict(init_values=0.1, use_learnable_pos_emb=True)
+LS_WATCH = ("blocks.0.gamma_1", "blocks.11.gamma_2", "pos_embed", "blocks.0.attn.qkv.weight")
+LS_WINDOW = 10
+
+
+def phase_layerscale_train(attn, card, train_ms: float):
+    """Phase 5's flagship slot step with LayerScale (`init_values` 0.1) and
+    a learned `pos_embed` on the student: TRAIN_STEPS counted steps (12
+    teacher K1-fwd, 12 K1-fwd stats and 12 K1-bwd each), LS_WINDOW timed
+    ones beside phase 5's ms, peak memory, the gammas and `pos_embed`
+    moved; then layerscale_vs_plain, one micro-batch of 2 clips through
+    fused and plain attention held as train_vs_plain holds the slot step,
+    the gammas' and `pos_embed`'s gradients finite and non-zero. Returns
+    the K1 counts."""
+    from devias_tpu_torch.nn import create_model
+    from devias_tpu_torch.train import OptimConfig, TrainState, make_optimizer, make_slot_train_step
+    from devias_tpu_torch.train.step import slot_loss
+
+    loss_cfg, step_cfg = _train_parts()
+    student = create_model("slot_vit_base_patch16_224", seed=0, fused_attention=True, **LS_KW, **SLOT_KW)
+    teacher = create_model("vit_base_patch16_224", seed=1, fused_attention=True, **TEACHER_KW)
+    sd = {k: v.cpu() for k, v in student.state_dict().items()}  # on the host: out of the peak memory read
+    opt, lr_fn = make_optimizer(student, OptimConfig(lr=5e-4, total_steps=1000, warmup_steps=10, layer_decay=0.75))
+    state = TrainState.create(student, opt)
+    step = make_slot_train_step(student, teacher, opt, loss_cfg, step_cfg, lr_fn)
+    rng = np.random.default_rng(0)
+    batch = {"videos": rng.standard_normal(CLIPS, dtype=np.float32), "labels": rng.integers(0, NUM_CLASSES, size=B)}
+    params = dict(student.named_parameters())
+    counts, ms, _ = _step_phase(attn, card, {"phase": "layerscale_train", "options": LS_KW,
+                                             "extra_params": sum(params[n].numel() for n in params
+                                                                 if "gamma" in n or n == "pos_embed"),
+                                             "phase5_ms_per_step": train_ms},
+                                step, state, batch, {"K1-fwd": 12, "K1-fwd-stats": 12, "K1-bwd": 12}, LS_WINDOW)
+    changed = {n: (params[n].detach().cpu() - sd[n]).abs().max().item() for n in LS_WATCH}
+    if not all(v > 0 for v in changed.values()):
+        fail(f"layerscale_train left parameters unchanged: {changed}")
+    del student, teacher, opt, state, step, params
+    torch.cuda.empty_cache()
+
+    videos, labels, draws = _small_slot_batch(1)
+
+    def build(fused):
+        m = create_model("slot_vit_base_patch16_224", seed=0, fused_attention=fused, **LS_KW, **SLOT_KW)
+        m.load_state_dict(sd)
+        return m
+
+    teacher = create_model("vit_base_patch16_224", seed=1, fused_attention=False, **TEACHER_KW)
+    (loss_f, grads_f), (loss_p, grads_p) = _fused_vs_plain(
+        build, lambda m, g: slot_loss(m, teacher, videos, labels, loss_cfg, step_cfg, g, draws)[0], LS_WATCH)
+    row = {"phase": "layerscale_vs_plain", "card": card, "clips": 2, "param_max_change": changed}
+    ok = _held(row, loss_f, loss_p, grads_f, grads_p)
+    emit(row)
+    nonzero = all(grads_f[n].abs().max().item() > 0 for n in LS_WATCH)
+    if not ok or not nonzero:
+        fail(f"layerscale: fused and plain disagree beyond their limits, or a watched gradient is zero: {row}")
+    del teacher
+    torch.cuda.empty_cache()
+    return counts
+
+
+GEOMETRY_KW = dict(patch_size=32, mlp_ratio=2.0, qkv_bias=False, qk_scale=0.1, norm_eps=1e-5)
+GEOMETRY_ITERS = 10
+ROWSUM_TOL = 1e-2
+
+
+def phase_geometry_eval(attn, card):
+    """The eval forward of a SlotViT-B with GEOMETRY_KW (392 tokens of
+    32x32 patches, a 2x MLP, no q/v biases, logit scale 0.1, eps 1e-5) at
+    B=12 in bf16: 12 K1-fwd at N = 392 (the scale, not a power of two,
+    applied to q before the kernel), its logits against the plain
+    attention's on the same weights within PLAIN_TOL of their RMS; then
+    block 0's `Attention` of the flagship student with `return_attn=True`
+    on a [12, 1568, 768] input: no K1 launch, `out` within PLAIN_TOL of
+    K1's output's RMS, every row of the probabilities summing to 1 within
+    ROWSUM_TOL. Returns the K1 counts."""
+    from devias_tpu_torch.nn import create_model
+
+    videos = torch.from_numpy(np.random.default_rng(7).standard_normal(CLIPS, dtype=np.float32)).cuda()
+    model = create_model("slot_vit_base_patch16_224", seed=0, fused_attention=True, **GEOMETRY_KW, **SLOT_KW)
+    plain = create_model("slot_vit_base_patch16_224", seed=0, fused_attention=False, **GEOMETRY_KW, **SLOT_KW)
+    plain.load_state_dict(model.state_dict())
+    attn.reset_launch_counts()
+    with torch.inference_mode():
+        got = model(videos)
+        torch.cuda.synchronize()
+        counts = attn.launch_counts()
+        by_heads = attn.launch_counts_by_heads()
+        t0 = time.perf_counter()
+        for _ in range(GEOMETRY_ITERS):
+            model(videos)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / GEOMETRY_ITERS * 1e3
+        want = plain(videos)
+    a, b = got["slots_head"].float(), want["slots_head"].float()
+    err, rms = (a - b).abs().max().item(), _rms(b)
+    row = {"phase": "geometry_eval", "card": card, "options": GEOMETRY_KW, "clips": B,
+           "tokens": (CLIPS[1] // 2) * (CLIPS[2] // GEOMETRY_KW["patch_size"]) ** 2,
+           "launches": counts, "launches_by_heads": by_heads, "ms": ms, "logits_max_abs_err": err, "logits_rms": rms,
+           "tol": PLAIN_TOL * rms, "finite": bool(torch.isfinite(a).all().item()),
+           "mask_width": got["mask_predictions"].shape[-1]}
+    del model, plain, got, want
+    torch.cuda.empty_cache()
+
+    student = create_model("slot_vit_base_patch16_224", seed=0, fused_attention=True, **SLOT_KW)
+    block = student.blocks[0].attn
+    n = (CLIPS[1] // 2) * (CLIPS[2] // 16) ** 2  # 1568
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal((B, n, student.embed_dim), dtype=np.float32))
+    x = x.cuda().to(torch.bfloat16)
+    with torch.inference_mode():
+        k1 = block(x)
+        attn.reset_launch_counts()
+        out, probs = block(x, return_attn=True)
+        torch.cuda.synchronize()
+        ra_counts = attn.launch_counts()
+        rows = probs.float().sum(-1)
+    ra = {"probs_shape": list(probs.shape), "out_max_abs_err_vs_k1": (out.float() - k1.float()).abs().max().item(),
+          "k1_rms": _rms(k1.float()), "row_sum_max_dev": (rows - 1).abs().max().item(), "launches": ra_counts}
+    row["return_attn"] = ra
+    emit(row)
+    del student, block, x, k1, out, probs, rows
+    torch.cuda.empty_cache()
+    ok = (row["finite"] and err <= PLAIN_TOL * rms and row["mask_width"] == 49
+          and ra["out_max_abs_err_vs_k1"] <= PLAIN_TOL * ra["k1_rms"] and ra["row_sum_max_dev"] <= ROWSUM_TOL
+          and not any(ra_counts.values()))
+    if not ok:
+        fail(f"geometry_eval: {row}")
+    _check_k1("geometry_eval", counts, {"K1-fwd": 12})
+    return counts
+
+
+def phase_int8_student(attn, card):
+    """The flagship student's eval forward at B=12 in bf16 and with
+    `int8_dense=True` (the w8a8 student: the blocks' qkv, proj, fc1 and fc2
+    through `torch._int_mm`), the same seeded weights with a spread head:
+    12 K1-fwd each, ms per forward, the slot logits' largest difference,
+    cosine (held to INT8_COSINE) and argmax agreement. Returns the K1
+    counts."""
+    from devias_tpu_torch.nn import create_model
+
+    videos = torch.from_numpy(np.random.default_rng(9).standard_normal(CLIPS, dtype=np.float32)).cuda()
+    logits, ms, total = {}, {}, None
+    for label, int8 in (("bf16", False), ("int8", True)):
+        student = create_model("slot_vit_base_patch16_224", seed=0, fused_attention=True, int8_dense=int8, **SLOT_KW)
+        _spread_heads(student, 26)
+        attn.reset_launch_counts()
+        with torch.inference_mode():
+            logits[label] = student(videos)["slots_head"].float()
+            counts = attn.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(INT8_ITERS):
+                student(videos)
+            torch.cuda.synchronize()
+        ms[label] = (time.perf_counter() - t0) / INT8_ITERS * 1e3
+        _check_k1(f"int8_student ({label})", counts, {"K1-fwd": 12})
+        total = counts if total is None else {k: total[k] + counts[k] for k in counts}
+        del student
+    a, b = logits["bf16"], logits["int8"]
+    cosine = F.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
+    emit({"phase": "int8_student", "card": card, "clips": B, "iters": INT8_ITERS, "ms": ms,
+          "int8_over_bf16": ms["int8"] / ms["bf16"], "logits_max_abs_diff": (a - b).abs().max().item(),
+          "logits_max_abs": a.abs().max().item(), "logits_cosine": cosine, "cosine_min": INT8_COSINE,
+          "argmax_agreement": (a.argmax(-1) == b.argmax(-1)).float().mean().item()})
+    if not cosine >= INT8_COSINE:
+        fail(f"int8 student: cosine {cosine}")
+    torch.cuda.empty_cache()
+    return total
+
+
+AGG_OPTIONS = dict(heads=8, dim_head=96, ff_mult=2, attn_dropout=0.1, ff_dropout=0.1, last_ln=False,
+                   pos_enc_type="sine1d")
+AGG_ITERS = 10
+
+
+def phase_agg_options(card):
+    """`AggregationBlock(**AGG_OPTIONS)` (8 tied rounds over 2 slots) on the
+    flagship student's tokens [12, 1568, 768] in bf16: forward and backward
+    in training (ms, the gradients finite, the share of dropout keeps
+    drawn), the eval forward (ms) against the same weights run by the port
+    in float32 on the CPU: the RMS of the difference within SLICE_TOL of
+    that output's RMS (8 rounds of bf16 residual adds without the final
+    norm; the largest difference is printed beside it)."""
+    from devias_tpu_torch.nn import AggregationBlock, create_model
+    from devias_tpu_torch.nn import vit
+
+    student = create_model("slot_vit_base_patch16_224", seed=0, fused_attention=True, **SLOT_KW)
+    videos = torch.from_numpy(np.random.default_rng(10).standard_normal(CLIPS, dtype=np.float32)).cuda()
+    with torch.no_grad():
+        tokens = student.forward_features(videos)
+    del student
+    D = tokens.shape[-1]
+    agg = AggregationBlock(2, D, 8, True, torch.bfloat16, **AGG_OPTIONS)
+    vit.init_weights(agg, torch.Generator().manual_seed(12))
+    cpu_agg = AggregationBlock(2, D, 8, True, torch.float32, **AGG_OPTIONS)
+    cpu_agg.load_state_dict(agg.state_dict())
+    cpu_agg.eval()
+    agg.cuda().train()
+
+    kept, keep_mask = [], vit._keep_mask
+
+    def counting(shape, keep, generator, device):
+        mask = keep_mask(shape, keep, generator, device)
+        kept.append(mask.float().mean())
+        return mask
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    vit._keep_mask = counting
+    try:
+        ctx = tokens.detach().requires_grad_()
+        slots, P = agg(ctx, gen)
+        (slots.float().square().mean() + P.float().mean()).backward()
+    finally:
+        vit._keep_mask = keep_mask
+    grads_finite = all(bool(torch.isfinite(p.grad).all().item()) for p in agg.parameters()) \
+        and bool(torch.isfinite(ctx.grad).all().item())
+    keep_share = torch.stack(kept).mean().item()
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(AGG_ITERS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / AGG_ITERS * 1e3
+
+    def train_step():
+        agg.zero_grad(set_to_none=True)
+        s, p = agg(tokens.detach().requires_grad_(), gen)
+        (s.float().square().mean() + p.float().mean()).backward()
+
+    train_ms = timed(train_step)
+    agg.eval()
+    with torch.no_grad():
+        eval_ms = timed(lambda: agg(tokens))
+        got, got_P = agg(tokens)
+        want, want_P = cpu_agg(tokens.float().cpu())
+    diff = got.float().cpu() - want
+    err, rms_err, rms = diff.abs().max().item(), _rms(diff), _rms(want)
+    row = {"phase": "agg_options", "card": card, "options": AGG_OPTIONS, "depth": 8, "tokens": list(tokens.shape),
+           "draws": len(kept), "keep_share": keep_share, "keep_expected": 0.9, "grads_finite": grads_finite,
+           "train_ms": train_ms, "eval_ms": eval_ms, "slots_max_abs_err_vs_cpu_f32": err,
+           "slots_rms_err_vs_cpu_f32": rms_err, "slots_rms": rms,
+           "P_max_abs_err_vs_cpu_f32": (got_P.float().cpu() - want_P).abs().max().item(), "tol": SLICE_TOL * rms,
+           "last_layer": agg.last_layer is not None}
+    emit(row)
+    if not grads_finite or len(kept) != 16 or abs(keep_share - 0.9) > 0.01 or rms_err > SLICE_TOL * rms:
+        fail(f"agg_options: {row}")
+    del agg, cpu_agg, tokens, ctx, slots, P, got, want
+    torch.cuda.empty_cache()
+
+
+YUV_REPEAT = 2  # passes over the 12 train files (24 clips each) for the loader's rate
+YUV_LEVELS = 2.0
+
+
+def _wire_loader(args, root: str, wire: str) -> dict:
+    """The CLI's training loader over YUV_REPEAT passes of the train files
+    with uint8 clips on `wire` (random erasing off): clips/s after the
+    first batch, bytes per clip, and the first batch."""
+    from devias_tpu_torch.cli import common
+    from devias_tpu_torch.data import build_dataset
+
+    train = os.path.join(root, "train.csv")
+    with open(train) as f:
+        lines = f.read().splitlines()
+    listed = os.path.join(root, f"wire_{wire}")
+    os.makedirs(listed, exist_ok=True)
+    with open(os.path.join(listed, "train.csv"), "w") as f:
+        f.write("\n".join(lines * YUV_REPEAT))
+    # uint8 clips leave the host only without random erasing (its output is
+    # normalised floats), in both packages
+    cfg = common.make_data_config(args, data_path=listed, host_normalize=False, wire_format=wire, reprob=0.0)
+    dataset, _ = build_dataset(True, False, cfg)
+    loader = common.make_train_loader(dataset, args)
+    loader.set_epoch(0)
+    t0 = time.perf_counter()
+    arrivals, clips, first = [], [], None
+    try:
+        for batch in loader:
+            arrivals.append(time.perf_counter() - t0)
+            clips.append(batch["videos"].shape[0])
+            first = batch if first is None else first
+    finally:
+        loader.close()
+    v = first["videos"]
+    return {"batches": len(arrivals), "clips": sum(clips), "clip_shape": list(v.shape[1:]), "dtype": str(v.dtype),
+            "bytes_per_clip": v[0].nbytes, "clips_per_s": sum(clips) / arrivals[-1],
+            "clips_per_s_after_first": sum(clips[1:]) / (arrivals[-1] - arrivals[0]), "first": first}
+
+
+def phase_yuv_wire(attn, card, root: str):
+    """The I420 wire on REAL_SPLITS' mp4 files: the CLI's training loader
+    (24 clips a batch, YUV_REPEAT passes) with `wire_format='yuv420'` and
+    with uint8 RGB, their clips/s and bytes per clip (I420 half of RGB's);
+    `i420_to_rgb` on the card against cv2's `COLOR_YUV2RGB_I420` on the
+    host for the first I420 batch, within YUV_LEVELS of 255; then one slot
+    train step at B=12 on the I420 clips with `device_normalize` (student
+    and teacher with `input_norm`): ms, a finite loss, 12 of each K1 form.
+    Returns the K1 counts."""
+    import cv2
+
+    from devias_tpu_torch.cli import run_slot_finetuning as cli
+    from devias_tpu_torch.data import i420_to_rgb
+    from devias_tpu_torch.nn import create_model
+    from devias_tpu_torch.train import OptimConfig, TrainState, make_optimizer, make_slot_train_step
+
+    args = cli.get_args(REAL_CLI_FLAGS + ["--data_path", root, "--output_dir", os.path.join(root, "wire_out")])
+    wires = {wire: _wire_loader(args, root, wire) for wire in ("yuv420", "rgb")}
+    yuv_batch = wires["yuv420"].pop("first")
+    wires["rgb"].pop("first")
+    planes = yuv_batch["videos"][0]  # [T, H*3/2, W] uint8
+    with torch.inference_mode():
+        rgb = (i420_to_rgb(torch.from_numpy(planes).cuda()) * 255.0).cpu().numpy()
+    ref = np.stack([cv2.cvtColor(p, cv2.COLOR_YUV2RGB_I420) for p in planes]).astype(np.float32)
+    levels = float(np.abs(rgb - ref).max())
+
+    loss_cfg, step_cfg = _train_parts()
+    step_cfg = dataclasses.replace(step_cfg, wire_format="yuv420", device_normalize=True)
+    student = create_model("slot_vit_base_patch16_224", seed=0, fused_attention=True, input_norm=True, **SLOT_KW)
+    teacher = create_model("vit_base_patch16_224", seed=1, fused_attention=True, input_norm=True, **TEACHER_KW)
+    opt, lr_fn = make_optimizer(student, OptimConfig(lr=5e-4, total_steps=1000, warmup_steps=10))
+    state = TrainState.create(student, opt)
+    step = make_slot_train_step(student, teacher, opt, loss_cfg, step_cfg, lr_fn)
+    batch = {k: torch.from_numpy(yuv_batch[k][:B]).cuda() for k in ("videos", "labels")}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step(state, batch, generator=gen)  # warm
+    torch.cuda.synchronize()
+    attn.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = step(state, batch, generator=gen, host_metrics=True)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    counts = attn.launch_counts()
+    ratio = wires["yuv420"]["bytes_per_clip"] / wires["rgb"]["bytes_per_clip"]
+    row = {"phase": "yuv_wire", "card": card, "loaders": wires, "i420_over_rgb_bytes": ratio,
+           "i420_to_rgb_max_levels_vs_cv2": levels, "levels_tol": YUV_LEVELS, "step_clips": B, "step_ms": step_ms,
+           "loss": metrics["loss"], "launches": counts}
+    emit(row)
+    if ratio != 0.5 or levels > YUV_LEVELS or not np.isfinite(metrics["loss"]):
+        fail(f"yuv_wire: {row}")
+    _check_k1("yuv_wire", counts, {"K1-fwd": 12, "K1-fwd-stats": 12, "K1-bwd": 12})
+    del student, teacher, opt, state, step, batch, yuv_batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+KILL_EPOCHS, KILL_STEPS = 3, 2
+KILL_WORKER = os.path.join("tests", "_torch_kill_resume_worker.py")
+
+
+def _kill_runs(flags, runs) -> list:
+    """Processes of the port's CLI through the kill-resume program, one per
+    (output dir, stopping point) of `runs`, started at once, each with its
+    stdout under its output dir; a run with a stopping point gets SIGKILL
+    once it stops there. Returns each run's stdout."""
+    import signal
+
+    procs, texts = [], []
+    try:
+        for out, kill_at in runs:
+            env = dict(os.environ, PYTHONPATH=os.getcwd())
+            env.pop("DEVIAS_KILL_AT", None)
+            marker = os.path.join(out, "stopped")
+            if kill_at is not None:
+                env.update(DEVIAS_KILL_AT=kill_at, DEVIAS_KILL_MARKER=marker)
+            os.makedirs(out, exist_ok=True)
+            log = open(os.path.join(out, f"stdout_{kill_at or 'run'}.log"), "w")
+            procs.append((subprocess.Popen([sys.executable, KILL_WORKER] + flags + ["--output_dir", out], env=env,
+                                           stdout=log, stderr=subprocess.STDOUT), log, marker, kill_at, out))
+        for p, log, marker, kill_at, out in procs:
+            deadline = time.monotonic() + 600
+            while kill_at is not None and not os.path.exists(marker):
+                if p.poll() is not None or time.monotonic() > deadline:
+                    fail(f"kill_resume: the run ended or stalled before its stopping point ({out})")
+                time.sleep(0.1)
+            if kill_at is not None:
+                os.kill(p.pid, signal.SIGKILL)
+            rc = p.wait(timeout=600)
+            log.close()
+            with open(log.name) as f:
+                text = f.read()
+            if (rc != -signal.SIGKILL) if kill_at is not None else (rc != 0):
+                fail(f"kill_resume: exit {rc}: {text[-3000:]}")
+            texts.append(text)
+    finally:
+        for p, log, *_ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    return texts
+
+
+def _train_records(out: str) -> dict:
+    recs = {}
+    with open(os.path.join(out, "log.txt")) as f:
+        for line in f:
+            r = json.loads(line)
+            if "epoch" in r and "train_loss" in r:
+                recs[r["epoch"]] = {k: v for k, v in r.items() if k.startswith("train_") and k != "train_time_s"}
+    return recs
+
+
+def _diff(a, b, where: str, out: list) -> None:
+    """The paths where `a` and `b` differ, with the largest difference of
+    each differing tensor."""
+    if isinstance(a, torch.Tensor):
+        if not (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)):
+            d = (a.double() - b.double()).abs().max().item() if isinstance(b, torch.Tensor) and a.shape == b.shape \
+                and a.is_floating_point() else None
+            out.append((where, d))
+    elif isinstance(a, dict):
+        if set(a) != set(b):
+            out.append((where, "keys"))
+        for k in a:
+            if k in b:
+                _diff(a[k], b[k], f"{where}.{k}", out)
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            out.append((where, "length"))
+        for i, (x, y) in enumerate(zip(a, b)):
+            _diff(x, y, f"{where}[{i}]", out)
+    elif a != b:
+        out.append((where, (a, b)))
+
+
+def phase_kill_resume(card):
+    """The CLI's full-width flags (CLI_FLAGS, EMA on) for KILL_EPOCHS
+    epochs of KILL_STEPS steps with a checkpoint each epoch, in processes
+    of `tests/_torch_kill_resume_worker.py`, one after another (two at once
+    on the card were not bitwise: their atomic sums interleave
+    differently): an uninterrupted run; a run SIGKILLed at its stopping
+    point, the second step of epoch 2 (after `checkpoint-1.pth`); the same
+    flags relaunched, which resumes after epoch 1. The resumed run's train records and final checkpoint (model,
+    EMA, optimizer state and count, step, generator state) must equal the
+    uninterrupted run's bitwise. The K1 launches are the processes' own,
+    not counted here."""
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "filelist")
+        os.makedirs(data)
+        for name, n in (("train.csv", B * KILL_STEPS), ("val.csv", B), ("test.csv", B // 2)):
+            with open(os.path.join(data, name), "w") as f:
+                f.write("\n".join(f"clip{i:03d}.mp4 {i % NUM_CLASSES}" for i in range(n)))
+        flags = CLI_FLAGS + ["--data_path", data, "--epochs", str(KILL_EPOCHS), "--max_steps_per_epoch",
+                             str(KILL_STEPS), "--save_ckpt_freq", "1", "--model_ema", "--disable_eval_during_finetuning"]
+        seconds = {}
+        t0 = time.perf_counter()
+        full, killed = os.path.join(tmp, "full"), os.path.join(tmp, "killed")
+        _kill_runs(flags, [(full, None)])
+        seconds["uninterrupted"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _kill_runs(flags, [(killed, f"step:{2 * KILL_STEPS + 1}")])
+        seconds["killed"] = time.perf_counter() - t0
+        saved = sorted(os.listdir(os.path.join(killed, "ckpt")))
+        partial = sorted(_train_records(killed))
+        t0 = time.perf_counter()
+        text, = _kill_runs(flags, [(killed, None)])
+        seconds["resumed"] = time.perf_counter() - t0
+        final = f"checkpoint-{KILL_EPOCHS - 1}.pth"
+        want = torch.load(os.path.join(full, "ckpt", final), map_location="cpu", weights_only=True)
+        got = torch.load(os.path.join(killed, "ckpt", final), map_location="cpu", weights_only=True)
+        diffs = []
+        _diff(got, want, "checkpoint", diffs)
+        same_records = _train_records(killed) == _train_records(full)
+    row = {"phase": "kill_resume", "card": card, "epochs": KILL_EPOCHS, "steps_per_epoch": KILL_STEPS,
+           "checkpoints_at_kill": saved, "records_at_kill": partial,
+           "resumed_after_epoch_1": "auto-resumed from epoch 1" in text, "seconds": seconds,
+           "records_equal": same_records, "checkpoint_bitwise": not diffs, "differences": diffs[:20],
+           "ema": want["model_ema"] is not None, "step": want["step"]}
+    emit(row)
+    if saved != ["checkpoint-0.pth", "checkpoint-1.pth"] or partial != [0, 1] or not row["resumed_after_epoch_1"] \
+            or not same_records or diffs or not row["ema"]:
+        fail(f"kill_resume: {row}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -3488,6 +3995,14 @@ def main() -> int:
     overfit_launches = phase_overfit(attn, card)
     health_launches = phase_health_run(attn, card)
     profile_launches = phase_profile_step(attn, card)
+    layerscale_launches = phase_layerscale_train(attn, card, train_ms)
+    geometry_launches = phase_geometry_eval(attn, card)
+    int8_student_launches = phase_int8_student(attn, card)
+    phase_agg_options(card)
+    with tempfile.TemporaryDirectory() as videos:
+        write_real_videos(videos)
+        yuv_launches = phase_yuv_wire(attn, card, videos)
+    phase_kill_resume(card)
 
     def launches(name):
         return sum(c[name] for c in (train_launches, sp_launches, cli_launches, dp_launches, hat_launches,
@@ -3495,7 +4010,8 @@ def main() -> int:
                                      ds_launches, ds_cli_launches, mt_launches, mt_cli_launches, options_launches,
                                      attn_drop_launches, int8_launches, options_cli_launches, real_launches,
                                      seg_launches, seg_cli_launches, parallel_launches, overfit_launches,
-                                     health_launches, profile_launches))
+                                     health_launches, profile_launches, layerscale_launches, geometry_launches,
+                                     int8_student_launches, yuv_launches))
 
     def at_1570(t):
         return {k: t[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}

@@ -4,9 +4,13 @@
 `np.asarray` takes) to the reference-layout state dict the port's modules
 carry: Dense kernels [in, out] become Linear weights [out, in], LayerNorm
 scale becomes weight, the patch-embed kernel [t*p*p*C, D] becomes the
-Conv3d layout [D, C, t, p, p], and a tied agg block's one unique layer is
-written at every round index. `load_jax_params` loads it with
-`strict=True`. `param_name_map` names the flax path of each port
+Conv3d layout [D, C, t, p, p] (p the `patch_size`), a block's LayerScale
+`gamma_1`/`gamma_2` and a model's learned `pos_embed` keep their names,
+the q and v biases exist only where the block has them (`qkv_bias`), the
+agg block's final norm only with `last_ln`, and a tied agg block's one
+unique layer is written at every round index. `load_jax_params` loads it
+with `strict=True`. `learned_pos_from_jax` maps a `Learned1D`/`Learned2D`
+tree of `nn/pos_encoding.py`. `param_name_map` names the flax path of each port
 parameter, so per-parameter rules (lr scales, decay masks) and values can
 be held against the JAX trees. The kinds are the four model families:
 `slot` (SlotViT), `plain` (PlainViT), `multi_task` (MultiTaskViT, whose
@@ -44,11 +48,11 @@ def _ln(sd, name, tree):
     sd[f"{name}.bias"] = _np(tree["bias"]).copy()
 
 
-def backbone_from_jax(sd: Dict[str, np.ndarray], bb: Dict[str, Any]) -> None:
-    """Write a VideoViT param tree (16x16 RGB patches) into `sd` under the
-    reference keys."""
+def backbone_from_jax(sd: Dict[str, np.ndarray], bb: Dict[str, Any], patch_size: int = 16) -> None:
+    """Write a VideoViT param tree (`patch_size`^2 RGB patches) into `sd`
+    under the reference keys."""
     k = _np(bb["patch_embed"]["kernel"])  # [t*p*p*C, D]
-    p, c = 16, 3
+    p, c = patch_size, 3
     sd["patch_embed.proj.weight"] = k.reshape(-1, p, p, c, k.shape[1]).transpose(4, 3, 0, 1, 2).copy()
     sd["patch_embed.proj.bias"] = _np(bb["patch_embed"]["bias"]).copy()
     if "cls_token" in bb:
@@ -63,8 +67,12 @@ def backbone_from_jax(sd: Dict[str, np.ndarray], bb: Dict[str, Any]) -> None:
         _ln(sd, f"{b}.norm1", blk["norm1"])
         _ln(sd, f"{b}.norm2", blk["norm2"])
         sd[f"{b}.attn.qkv.weight"] = _np(blk["attn"]["qkv_kernel"]).T.copy()
-        sd[f"{b}.attn.q_bias"] = _np(blk["attn"]["q_bias"]).copy()
-        sd[f"{b}.attn.v_bias"] = _np(blk["attn"]["v_bias"]).copy()
+        for name in ("q_bias", "v_bias"):
+            if name in blk["attn"]:
+                sd[f"{b}.attn.{name}"] = _np(blk["attn"][name]).copy()
+        for name in ("gamma_1", "gamma_2"):
+            if name in blk:
+                sd[f"{b}.{name}"] = _np(blk[name]).copy()
         _linear(sd, f"{b}.attn.proj", blk["attn"]["proj"])
         _linear(sd, f"{b}.mlp.fc1", blk["mlp"]["fc1"])
         _linear(sd, f"{b}.mlp.fc2", blk["mlp"]["fc2"])
@@ -90,7 +98,14 @@ def agg_from_jax(sd: Dict[str, np.ndarray], agg: Dict[str, Any], depth: int,
         _ln(sd, f"{b}.2.norm", lay["norm_ff"])
         _linear(sd, f"{b}.2.fn.net.0", lay["ff_fc1"])
         _linear(sd, f"{b}.2.fn.net.3", lay["ff_fc2"])
-    _ln(sd, f"{prefix}last_layer.0", agg["last_norm"])
+    if "last_norm" in agg:
+        _ln(sd, f"{prefix}last_layer.0", agg["last_norm"])
+
+
+def learned_pos_from_jax(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The state dict of a `Learned1D` (`embed`) or `Learned2D`
+    (`row_embed`, `col_embed`) from its flax param tree: the same names."""
+    return {k: _np(v).copy() for k, v in tree.items()}
 
 
 _REQUIRED = {"slot": ("head", "agg_block", "mask_predictor"), "plain": ("head",), "multi_task": ("head",),
@@ -102,16 +117,17 @@ def _check_kind(model_kind: str) -> None:
         raise ValueError(f"unknown model_kind {model_kind!r}; expected one of {MODEL_KINDS}")
 
 
-def state_dict_from_jax(params: Dict[str, Any], model_kind: str, agg_depth: int = 8) -> Dict[str, np.ndarray]:
+def state_dict_from_jax(params: Dict[str, Any], model_kind: str, agg_depth: int = 8,
+                        patch_size: int = 16) -> Dict[str, np.ndarray]:
     """Reference-layout state dict of a flax param tree of `model_kind`
     (`MODEL_KINDS`); `agg_depth` is the number of agg rounds of a model
-    with an agg block."""
+    with an agg block, `patch_size` its backbone's."""
     _check_kind(model_kind)
     missing = [k for k in ("backbone", *_REQUIRED[model_kind]) if k not in params]
     if missing:
         raise ValueError(f"{model_kind} params lack {missing}; have {sorted(params)}")
     sd: Dict[str, np.ndarray] = {}
-    backbone_from_jax(sd, params["backbone"])
+    backbone_from_jax(sd, params["backbone"], patch_size)
     if "agg_block" in params:
         agg_from_jax(sd, params["agg_block"], agg_depth)
     if model_kind == "slot":
@@ -144,7 +160,7 @@ def load_jax_params(model: nn.Module, params: Dict[str, Any], model_kind: str,
     if agg_depth is None:
         agg = getattr(model, "agg_block", None)
         agg_depth = agg.depth if agg is not None else 0
-    sd = state_dict_from_jax(params, model_kind, agg_depth)
+    sd = state_dict_from_jax(params, model_kind, agg_depth, model.patch_embed.patch_size)
     model.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in sd.items()},
                           strict=True)
     return model
@@ -183,6 +199,8 @@ def flax_path(name: str, model_kind: str, agg_weights_tie: bool = True) -> Tuple
             return block + ("attn", "qkv_kernel")
         if rest == ("attn",):
             return block + ("attn", leaf)
+        if not rest:  # gamma_1, gamma_2
+            return block + (leaf,)
         return _leaf(block + rest, leaf, rest[-1] in _LN_MODULES)
     if mod == ["norm"]:
         return _leaf(("backbone", "norm"), leaf, True)

@@ -128,9 +128,9 @@ class _Stages:
 
     def _like(self, n: int) -> torch.Tensor:
         """An empty activation of n clips: [n, N, D] in the model's dtype."""
-        tb = self.model.patch_embed.tubelet_size
+        tb, p = self.model.patch_embed.tubelet_size, self.model.patch_embed.patch_size
         T, H, W = self.videos.shape[1:4]
-        N = (T // tb) * (H // 16) * (W // 16)
+        N = (T // tb) * (H // p) * (W // p)
         return torch.empty((n, N, self.model.embed_dim), dtype=self.model.dtype, device=self.videos.device)
 
     def backward(self, grad: torch.Tensor) -> None:

@@ -5,7 +5,8 @@ ref: dataset/datasets.py:18-446 (build_dataset switch), dataset/kinetics.py
 (VideoClsDataset), dataset/ssv2.py, dataset/activitynet.py, dataset/hvu.py.
 
 Samples are dict records with channels-last clips, float32 (or uint8 with
-`host_normalize=False`):
+`host_normalize=False`; uint8 I420 planes [T, H*3//2, W] with
+`wire_format='yuv420'`, `data/yuv.py`):
   train:      {'videos': [T,H,W,C], 'labels': int}   (+'scene_labels' HVU)
   validation: + 'video_id'
   test:       + 'chunk', 'split'  (the flattened deterministic view grid,
@@ -36,6 +37,7 @@ from devias_tpu_torch.data.samplers import (
     tsn_train_indices,
 )
 from devias_tpu_torch.data.video_reader import FrameFolderReader, SyntheticReader, VideoReadError, open_video
+from devias_tpu_torch.data.yuv import rgb_clip_to_i420
 
 
 @dataclasses.dataclass
@@ -64,6 +66,11 @@ class DataConfig:
     # while drawing fresh augmentations every epoch. None restores
     # OS-entropy draws.
     aug_seed: object = 0  # Optional[int]
+    # 'yuv420' packs the uint8 clips as I420 planes (half the bytes;
+    # `data/yuv.py`), which needs host_normalize=False. The train step
+    # unpacks a train batch (`TrainStepConfig.wire_format`); the caller
+    # unpacks val and test batches with `data/yuv.py::i420_to_rgb`.
+    wire_format: str = "rgb"
 
 
 class VideoDataset:
@@ -170,14 +177,17 @@ class VideoDataset:
         entry = self.entries[index]
         rng, np_rng = self._sample_rngs(index)
         buffer = self._load_clip(entry, train=True, rng=np_rng)
+        if cfg.wire_format == "yuv420" and cfg.host_normalize:
+            raise ValueError("wire_format='yuv420' requires host_normalize=False")
 
         def one():
-            return T.train_augment(
+            clip = T.train_augment(
                 buffer, cfg.input_size, cfg.aa,
                 horizontal_flip=self.hflip, reprob=cfg.reprob, rng=rng,
                 host_normalize=cfg.host_normalize,
                 interpolation=cfg.train_interpolation,
             )
+            return rgb_clip_to_i420(clip) if cfg.wire_format == "yuv420" else clip
 
         if cfg.num_sample > 1:
             # repeated augmentation (ref kinetics.py:138-148 + collate
@@ -207,6 +217,10 @@ class VideoDataset:
             buffer = buffer[start : start + cfg.num_frames]
         clip = T.val_transform(buffer, cfg.short_side_size, cfg.input_size, host_normalize=cfg.host_normalize)
         clip = clip[: cfg.num_frames] if self.tsn else clip
+        if cfg.wire_format == "yuv420":
+            if cfg.host_normalize:
+                raise ValueError("wire_format='yuv420' requires host_normalize=False")
+            clip = rgb_clip_to_i420(clip)
         out = {
             "videos": clip,
             "labels": np.int64(entry.label),
@@ -248,6 +262,8 @@ class VideoDataset:
             clip = np.ascontiguousarray(T.normalize_clip(buffer), np.float32)
         else:
             clip = np.ascontiguousarray(buffer, np.uint8)
+            if cfg.wire_format == "yuv420":
+                clip = rgb_clip_to_i420(clip)
         out = {
             "videos": clip,
             "labels": np.int64(entry.label),

@@ -1,13 +1,16 @@
-"""I420 (YUV 4:2:0) clips to RGB on the device (port of
-`devias_tpu/data/yuv.py::i420_to_rgb`).
+"""The I420 (YUV 4:2:0) wire (port of `devias_tpu/data/yuv.py`).
 
-The training wire may ship uint8 I420 planes [B, T, H*3//2, W], half the
-bytes of RGB; the step unpacks them to [0, 1] RGB before FAME: BT.601
-limited-range matrix, nearest 2x2 chroma upsampling, clipped to unit range.
+The loader may ship uint8 I420 planes [B, T, H*3//2, W], half the bytes
+of RGB (`DataConfig.wire_format='yuv420'`): the host packs each
+augmented clip with cv2 (`rgb_clip_to_i420`, BT.601 studio range), and
+the step unpacks the batch to [0, 1] RGB on the card before FAME
+(`i420_to_rgb`: BT.601 limited-range matrix, nearest 2x2 chroma
+upsampling, clipped to unit range).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _Y_SCALE = 255.0 / 219.0
@@ -15,6 +18,20 @@ _V_R = 1.596027
 _U_G = -0.391762
 _V_G = -0.812968
 _U_B = 2.017232
+
+
+def rgb_clip_to_i420(clip: np.ndarray) -> np.ndarray:
+    """[T, H, W, 3] uint8 RGB -> [T, H*3//2, W] uint8 I420 planes
+    (cv2 `COLOR_RGB2YUV_I420`); H and W must be even."""
+    import cv2
+
+    T, H, W, _ = clip.shape
+    if H % 2 or W % 2:
+        raise ValueError(f"I420 needs even H, W; got {(H, W)}")
+    out = np.empty((T, H * 3 // 2, W), np.uint8)
+    for t in range(T):
+        out[t] = cv2.cvtColor(clip[t], cv2.COLOR_RGB2YUV_I420)
+    return out
 
 
 def i420_to_rgb(x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:

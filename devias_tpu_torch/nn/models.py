@@ -14,8 +14,11 @@ keys. In `train()` mode `fc_drop_rate` dropout applies to what feeds the
 head (the slots, the CLS, scene or pooled token), with the backbone's
 dropout and drop-path; `forward` takes the `torch.Generator` they draw
 from. Every model takes the backbone's `remat` (activation
-checkpointing); the plain ViT, the frozen scene teacher, also takes
-`int8_dense` (w8a8 frozen inference).
+checkpointing) and geometry (`patch_size`, `mlp_ratio`, `qkv_bias`,
+`qk_scale`, `norm_eps`), LayerScale (`init_values`) and the learnable
+position embedding (`use_learnable_pos_emb`, a `pos_embed` sized for
+`num_frames` x `img_size`^2 clips); the slot and plain ViTs also take
+`int8_dense` (w8a8 frozen inference: the int8 student and teacher).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from torch import nn
 from devias_tpu_torch.device import DeviceLike, resolve_device
 from devias_tpu_torch.nn.agg import AggregationBlock, LayerNorm
 from devias_tpu_torch.nn.heads import FusionMLPHead, MaskPredictor, MLPHead
-from devias_tpu_torch.nn.vit import PATCH_SIZE, Linear, VideoViT, dropout, init_weights
+from devias_tpu_torch.nn.vit import MLP_RATIO, NORM_EPS, PATCH_SIZE, Linear, VideoViT, dropout, init_weights
 
 
 def select_slots_by_head(slots: torch.Tensor, slots_head: torch.Tensor, num_classes: int,
@@ -56,7 +59,8 @@ def select_slots_by_head(slots: torch.Tensor, slots_head: torch.Tensor, num_clas
 def _backbone_kwargs(kw: dict) -> dict:
     keys = ("embed_dim", "depth", "num_heads", "drop_rate", "attn_drop_rate", "drop_path_rate",
             "tubelet_size", "use_learnable_pos_emb", "img_size", "num_frames", "fused_attention", "exact_gelu",
-            "patch_embed_mode", "input_norm", "remat", "int8_dense", "dtype")
+            "patch_embed_mode", "input_norm", "remat", "int8_dense", "mlp_ratio", "qkv_bias", "qk_scale",
+            "init_values", "patch_size", "norm_eps", "dtype")
     return {k: kw[k] for k in keys if k in kw}
 
 
@@ -77,6 +81,9 @@ class SlotViT(VideoViT):
                  slot_matching_method: str = "matching", head_type: str = "linear",
                  fused_attention: bool = False, exact_gelu: bool = False,
                  patch_embed_mode: Optional[str] = None, input_norm: bool = False, remat: bool = False,
+                 mlp_ratio: float = MLP_RATIO, qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 init_values: float = 0.0, patch_size: int = PATCH_SIZE, norm_eps: float = NORM_EPS,
+                 use_learnable_pos_emb: bool = False, num_frames: int = 16, int8_dense: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__(**_backbone_kwargs(locals()))
         if slot_matching_method not in ("matching", "hard_select"):
@@ -94,7 +101,7 @@ class SlotViT(VideoViT):
             self.head = Linear(embed_dim, total, init_std=0.02 * init_scale)
         else:
             self.head = MLPHead(embed_dim, 512, total, out_init_std=0.02 * init_scale)
-        self.mask_predictor = MaskPredictor(embed_dim, (img_size // PATCH_SIZE) ** 2)
+        self.mask_predictor = MaskPredictor(embed_dim, (img_size // patch_size) ** 2)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 tokens: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
@@ -105,7 +112,7 @@ class SlotViT(VideoViT):
             raise ValueError(f"clips must be {self.img_size}x{self.img_size}; got {tuple(x.shape)}")
         if tokens is None:
             tokens = self.forward_features(x, generator)
-        slots, attn = self.agg_block(tokens)
+        slots, attn = self.agg_block(tokens, generator)
         slots_head = self.head(dropout(slots, self.fc_drop_rate, self.training, generator))
         out = {
             "slots": slots,
@@ -137,7 +144,10 @@ class PlainViT(VideoViT):
                  tubelet_size: int = 2, use_mean_pooling: bool = True,
                  fused_attention: bool = False, exact_gelu: bool = False,
                  patch_embed_mode: Optional[str] = None, input_norm: bool = False, remat: bool = False,
-                 int8_dense: bool = False, dtype: torch.dtype = torch.float32):
+                 int8_dense: bool = False, mlp_ratio: float = MLP_RATIO, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None, init_values: float = 0.0, patch_size: int = PATCH_SIZE,
+                 norm_eps: float = NORM_EPS, use_learnable_pos_emb: bool = False, img_size: int = 224,
+                 num_frames: int = 16, dtype: torch.dtype = torch.float32):
         super().__init__(use_cls_token=not use_mean_pooling, final_norm=not use_mean_pooling,
                          **_backbone_kwargs(locals()))
         self.fc_drop_rate = fc_drop_rate
@@ -167,7 +177,9 @@ class MultiTaskViT(VideoViT):
                  tubelet_size: int = 2, unified_head: bool = False, use_learnable_pos_emb: bool = False,
                  img_size: int = 224, num_frames: int = 16, fused_attention: bool = False,
                  exact_gelu: bool = False, patch_embed_mode: Optional[str] = None, input_norm: bool = False,
-                 remat: bool = False, dtype: torch.dtype = torch.float32):
+                 remat: bool = False, mlp_ratio: float = MLP_RATIO, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None, init_values: float = 0.0, patch_size: int = PATCH_SIZE,
+                 norm_eps: float = NORM_EPS, dtype: torch.dtype = torch.float32):
         super().__init__(use_cls_token=True, num_extra_suffix_tokens=1, **_backbone_kwargs(locals()))
         self.fc_drop_rate = fc_drop_rate
         self.unified_head = unified_head
@@ -207,6 +219,9 @@ class SlotFusionViT(VideoViT):
                  agg_weights_tie: bool = True, slot_fusion_method: str = "concat", head_type: str = "mlp",
                  use_input_ln: bool = False, fused_attention: bool = False, exact_gelu: bool = False,
                  patch_embed_mode: Optional[str] = None, input_norm: bool = False, remat: bool = False,
+                 mlp_ratio: float = MLP_RATIO, qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 init_values: float = 0.0, patch_size: int = PATCH_SIZE, norm_eps: float = NORM_EPS,
+                 use_learnable_pos_emb: bool = False, img_size: int = 224, num_frames: int = 16,
                  dtype: torch.dtype = torch.float32):
         super().__init__(**_backbone_kwargs(locals()))
         if slot_fusion_method not in ("concat", "gap"):
@@ -237,7 +252,7 @@ class SlotFusionViT(VideoViT):
         if self.slot_fusion_method == "gap":
             feat = dropout(self.action_norm(tokens.mean(dim=1)), self.fc_drop_rate, self.training, generator)
             return {"feat": feat, "logits": self.fusion_head(feat)}
-        slots, _ = self.agg_block(tokens)
+        slots, _ = self.agg_block(tokens, generator)
         sel = select_slots_by_head(slots, self.head(slots), self.num_classes, self.num_scene_classes)
         action_feat, scene_feat = self.action_norm(sel["action_feat"]), self.scene_norm(sel["scene_feat"])
         if isinstance(self.fusion_head, FusionMLPHead):

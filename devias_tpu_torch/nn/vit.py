@@ -17,7 +17,11 @@ and from the same generator otherwise; in `eval()` or at rate 0 they are
 no-ops. `remat` recomputes each block's activations in the backward
 (`torch.utils.checkpoint`) with the same draws; `int8_dense` runs the
 blocks' four dense layers as w8a8 int8 products (`nn/quant.py`, frozen
-inference only). Given `seq` (a
+inference only). The geometry follows the JAX fields: `patch_size`
+(16 by default), `mlp_ratio`, `qkv_bias` (the learnable q and v biases),
+`qk_scale` (the logit scale, head dim^-0.5 by default), `norm_eps` (the
+blocks' and the final norm's eps) and `init_values` (LayerScale: per-channel
+`gamma_1`, `gamma_2` on the attention and MLP branches when > 0). Given `seq` (a
 `core/dist.py::SPMesh`), the backbone runs sequence-parallel on this
 rank's frames: attention gathers K/V over the seq group
 (`devias_tpu/nn/vit.py:225-249`). An `Attention` or `Mlp` whose `tp` is
@@ -33,6 +37,7 @@ hand-written VJP (which exists to save TPU memory).
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -52,7 +57,7 @@ from devias_tpu_torch.nn.quant import int8_dot_quantized, quantize
 
 PATCH_SIZE = 16
 NORM_EPS = 1e-6
-MLP_RATIO = 4
+MLP_RATIO = 4.0
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 PATCH_EMBED_MODES = ("conv", "patchify", "dot")
@@ -208,30 +213,56 @@ class Mlp(nn.Module):
 
 
 def _attention_with_dropout(qkv: torch.Tensor, num_heads: int, scale: float, rate: float,
-                            generator: Optional[torch.Generator], heads: Optional[Tuple[int, int]] = None
-                            ) -> torch.Tensor:
-    """The JAX package's unfused training attention with probability
-    dropout (`devias_tpu/nn/vit.py:261-266`): q scaled, q k^T and the
-    softmax's input in qkv's dtype, the softmax in float32 cast back,
-    dropout on the probabilities, then the product with v. `heads` = (first,
-    total) for a tensor-parallel rank's heads: the mask is drawn for all
-    `total` heads, as one rank would, and this rank's are kept."""
+                            generator: Optional[torch.Generator], heads: Optional[Tuple[int, int]] = None,
+                            training: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's unfused attention with probability dropout
+    (`devias_tpu/nn/vit.py:261-266`): q scaled, q k^T and the softmax's
+    input in qkv's dtype, the softmax in float32 cast back, dropout on the
+    probabilities (in `training`), then the product with v. Returns (out
+    [B, N, C], the probabilities after dropout [B, H, N, N]). `heads` =
+    (first, total) for a tensor-parallel rank's heads: the mask is drawn
+    for all `total` heads, as one rank would, and this rank's are kept."""
     B, N, C3 = qkv.shape
     q, k, v = qkv.reshape(B, N, 3, num_heads, C3 // (3 * num_heads)).unbind(2)
     attn = torch.einsum("bnhd,bmhd->bhnm", q * scale, k)
     probs = attn.float().softmax(dim=-1).to(qkv.dtype)
     if heads is None:
-        attn = dropout(probs, rate, True, generator)
+        attn = dropout(probs, rate, training, generator)
     else:
         keep = _keep_mask((B, heads[1], N, N), 1.0 - rate, generator, qkv.device)[:, heads[0]:heads[0] + num_heads]
         attn = torch.where(keep, probs / (1.0 - rate), torch.zeros_like(probs))
-    return torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(B, N, C3 // 3)
+    return torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(B, N, C3 // 3), attn
+
+
+def _kernel_scale(qkv: torch.Tensor, scale: float) -> Tuple[torch.Tensor, float]:
+    """(qkv, scale) as K1 and K2 take them. The kernels fold the logit
+    scale into the exponent, which equals the TPU kernel's rounding of q *
+    scale to the compute dtype only for a power of two; any other scale (a
+    `qk_scale`) is applied to the q columns here, in qkv's dtype, and the
+    kernel runs at scale 1. The plain version computes the same either way."""
+    if math.frexp(scale)[0] == 0.5:
+        return qkv, scale
+    C = qkv.shape[-1] // 3
+    return torch.cat([qkv[..., :C] * scale, qkv[..., C:]], dim=-1), 1.0
+
+
+def _attend(qkv: torch.Tensor, num_heads: int, scale: float, fused: bool) -> torch.Tensor:
+    """K1 when `fused`, else its plain version, on the fused projection."""
+    if not fused:
+        return attention_qkv_reference(qkv, num_heads, scale)
+    qkv, scale = _kernel_scale(qkv, scale)
+    return fused_attention_qkv(qkv, num_heads, scale)
 
 
 class Attention(nn.Module):
     """Multi-head self-attention with one qkv weight, learnable q and v
-    biases and a zero k bias. `fused=True` calls K1 on the [B, N, 3C]
-    projection with no head transposes; otherwise the plain einsum path.
+    biases (none with `qkv_bias=False`) and a zero k bias; the logit scale
+    is `qk_scale`, or head dim^-0.5. `fused=True` calls K1 on the [B, N, 3C]
+    projection with no head transposes (a scale that is not a power of two
+    through `_kernel_scale`); otherwise the plain einsum path.
+    `return_attn=True` takes the plain path whatever `fused` says and
+    returns (out, the probabilities after their dropout), as JAX does; it
+    raises under sequence or tensor parallelism.
     Given `seq`, q stays local and k | v is gathered over the seq group:
     K2 when fused, the plain einsum against the gathered kv otherwise.
     In training with `attn_drop > 0` the attention is the plain one with
@@ -241,22 +272,30 @@ class Attention(nn.Module):
     rate > 0 raises, as in the JAX package."""
 
     def __init__(self, dim: int, num_heads: int, fused: bool = False, dtype: torch.dtype = torch.float32,
-                 attn_drop: float = 0.0, proj_drop: float = 0.0, int8_dense: bool = False):
+                 attn_drop: float = 0.0, proj_drop: float = 0.0, int8_dense: bool = False, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None):
         super().__init__()
         self.attn_drop = attn_drop
         self.proj_drop = proj_drop
         self.num_heads = num_heads
-        self.scale = (dim // num_heads) ** -0.5
+        self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.fused = fused
         self.dtype = dtype
         self.qkv = Linear(dim, 3 * dim, bias=False, int8_dense=int8_dense)
-        self.q_bias = nn.Parameter(torch.zeros(dim))
-        self.v_bias = nn.Parameter(torch.zeros(dim))
+        self.q_bias = nn.Parameter(torch.zeros(dim)) if qkv_bias else None
+        self.v_bias = nn.Parameter(torch.zeros(dim)) if qkv_bias else None
         self.proj = Linear(dim, dim, int8_dense=int8_dense)
 
     def init_own_params(self, generator: torch.Generator) -> None:
-        nn.init.zeros_(self.q_bias)
-        nn.init.zeros_(self.v_bias)
+        if self.q_bias is not None:
+            nn.init.zeros_(self.q_bias)
+            nn.init.zeros_(self.v_bias)
+
+    def _qkv(self, x: torch.Tensor) -> torch.Tensor:
+        qkv = self.qkv(x.to(self.dtype))
+        if self.q_bias is None:
+            return qkv
+        return qkv + torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias]).to(self.dtype)
 
     tp: Optional[SPMesh] = None  # set by core/dist.py::shard_blocks_tp: qkv's head rows, proj's columns
 
@@ -267,62 +306,85 @@ class Attention(nn.Module):
         proj's bias added once."""
         tp = self.tp
         heads = self.num_heads // tp.model_size
-        C = heads * (self.q_bias.shape[0] // self.num_heads)
-        lo = tp.model_rank * C
-        qv = copy_to_model_group(torch.stack([self.q_bias, self.v_bias]), tp)[:, lo:lo + C]
-        bias = torch.cat([qv[0], torch.zeros_like(qv[0]), qv[1]])
-        qkv = self.qkv(copy_to_model_group(x.to(self.dtype), tp)) + bias.to(self.dtype)
+        C = heads * (self.proj.weight.shape[0] // self.num_heads)
+        qkv = self.qkv(copy_to_model_group(x.to(self.dtype), tp))
+        if self.q_bias is not None:
+            lo = tp.model_rank * C
+            qv = copy_to_model_group(torch.stack([self.q_bias, self.v_bias]), tp)[:, lo:lo + C]
+            qkv = qkv + torch.cat([qv[0], torch.zeros_like(qv[0]), qv[1]]).to(self.dtype)
         if self.training and self.attn_drop > 0.0:
-            out = _attention_with_dropout(qkv, heads, self.scale, self.attn_drop, generator,
-                                          (tp.model_rank * heads, self.num_heads))
+            out, _ = _attention_with_dropout(qkv, heads, self.scale, self.attn_drop, generator,
+                                             (tp.model_rank * heads, self.num_heads))
         else:
-            attend = fused_attention_qkv if self.fused else attention_qkv_reference
-            out = attend(qkv, heads, self.scale)
+            out = _attend(qkv, heads, self.scale, self.fused)
         y = reduce_from_model_group(F.linear(out, self.proj.weight.to(out.dtype)), tp)
         return dropout(y + self.proj.bias.to(y.dtype), self.proj_drop, self.training, generator)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
-                seq: Optional[SPMesh] = None) -> torch.Tensor:
+                seq: Optional[SPMesh] = None, return_attn: bool = False):
+        if return_attn and (seq is not None or self.tp is not None):
+            raise NotImplementedError("return_attn under sequence or tensor parallelism")
         if self.tp is not None:
             if seq is not None:
                 raise NotImplementedError("tensor and sequence parallelism together")
             return self._forward_tp(x, generator)
-        bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
-        qkv = self.qkv(x.to(self.dtype)) + bias.to(self.dtype)
+        qkv = self._qkv(x)
         if seq is not None:
             if self.attn_drop > 0.0:
                 raise NotImplementedError("attn_drop > 0 under sequence parallelism")
+            scale = self.scale
+            if self.fused:
+                qkv, scale = _kernel_scale(qkv, scale)
             C = qkv.shape[-1] // 3
             attend = fused_attention_q_kv if self.fused else attention_q_kv_reference
-            out = attend(qkv[..., :C].contiguous(), gather_kv(qkv[..., C:], seq), self.num_heads, self.scale)
+            out = attend(qkv[..., :C].contiguous(), gather_kv(qkv[..., C:], seq), self.num_heads, scale)
             return dropout(self.proj(out), self.proj_drop, self.training, generator)
-        if self.training and self.attn_drop > 0.0:
-            out = _attention_with_dropout(qkv, self.num_heads, self.scale, self.attn_drop, generator)
-        else:
-            attend = fused_attention_qkv if self.fused else attention_qkv_reference
-            out = attend(qkv, self.num_heads, self.scale)
+        if return_attn or (self.training and self.attn_drop > 0.0):
+            out, attn = _attention_with_dropout(qkv, self.num_heads, self.scale, self.attn_drop, generator,
+                                                training=self.training)
+            out = dropout(self.proj(out), self.proj_drop, self.training, generator)
+            return (out, attn) if return_attn else out
+        out = _attend(qkv, self.num_heads, self.scale, self.fused)
         return dropout(self.proj(out), self.proj_drop, self.training, generator)
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block."""
+    """Pre-norm transformer block. With `init_values > 0`, LayerScale: the
+    attention and MLP branches are multiplied, in the compute dtype and
+    before drop-path, by `gamma_1` and `gamma_2` ([dim] float32, filled
+    with `init_values`; `devias_tpu/nn/vit.py:321-345`)."""
 
     def __init__(self, dim: int, num_heads: int, fused_attention: bool = False, exact_gelu: bool = False,
                  dtype: torch.dtype = torch.float32, drop: float = 0.0, attn_drop: float = 0.0,
-                 drop_path_rate: float = 0.0, int8_dense: bool = False):
+                 drop_path_rate: float = 0.0, int8_dense: bool = False, mlp_ratio: float = MLP_RATIO,
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None, init_values: float = 0.0,
+                 norm_eps: float = NORM_EPS):
         super().__init__()
         self.drop_path_rate = drop_path_rate
-        self.norm1 = FastLayerNorm(dim, dtype)
-        self.attn = Attention(dim, num_heads, fused_attention, dtype, attn_drop, drop, int8_dense)
-        self.norm2 = FastLayerNorm(dim, dtype)
-        self.mlp = Mlp(dim, MLP_RATIO * dim, False if exact_gelu else None, dtype, drop, int8_dense)
+        self.init_values = init_values
+        self.norm1 = FastLayerNorm(dim, dtype, norm_eps)
+        self.attn = Attention(dim, num_heads, fused_attention, dtype, attn_drop, drop, int8_dense, qkv_bias, qk_scale)
+        self.norm2 = FastLayerNorm(dim, dtype, norm_eps)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), False if exact_gelu else None, dtype, drop, int8_dense)
+        self.gamma_1 = nn.Parameter(torch.full((dim,), float(init_values))) if init_values > 0 else None
+        self.gamma_2 = nn.Parameter(torch.full((dim,), float(init_values))) if init_values > 0 else None
+
+    def init_own_params(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            for gamma in (self.gamma_1, self.gamma_2):
+                if gamma is not None:
+                    gamma.fill_(self.init_values)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 path_generator: Optional[torch.Generator] = None, seq: Optional[SPMesh] = None) -> torch.Tensor:
         path_generator = generator if path_generator is None else path_generator
         y = self.attn(self.norm1(x), generator, seq)
+        if self.gamma_1 is not None:
+            y = y * self.gamma_1.to(y.dtype)
         x = x + drop_path(y, self.drop_path_rate, self.training, path_generator)
         y = self.mlp(self.norm2(x), generator)
+        if self.gamma_2 is not None:
+            y = y * self.gamma_2.to(y.dtype)
         return x + drop_path(y, self.drop_path_rate, self.training, path_generator)
 
 
@@ -381,9 +443,9 @@ class _Conv3dParams(nn.Module):
     [D, 3, tubelet, p, p] (key `patch_embed.proj.weight`); never run as a
     convolution."""
 
-    def __init__(self, embed_dim: int, tubelet: int):
+    def __init__(self, embed_dim: int, tubelet: int, patch_size: int = PATCH_SIZE):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(embed_dim, 3, tubelet, PATCH_SIZE, PATCH_SIZE))
+        self.weight = nn.Parameter(torch.empty(embed_dim, 3, tubelet, patch_size, patch_size))
         self.bias = nn.Parameter(torch.zeros(embed_dim))
 
     def init_own_params(self, generator: torch.Generator) -> None:
@@ -393,29 +455,35 @@ class _Conv3dParams(nn.Module):
 
 
 class PatchEmbed3D(nn.Module):
-    """Tubelet patch embedding as patchify + one matmul. The JAX package's
+    """Tubelet patch embedding (`patch_size` x `patch_size` pixels over
+    `tubelet_size` frames) as patchify + one matmul. The JAX package's
     `conv`, `patchify` and `dot` modes are the same linear map, so every
-    mode runs this one (a cuDNN Conv3d would run in TF32 by default)."""
+    mode runs this one at every patch size (a cuDNN Conv3d would run in
+    TF32 by default)."""
 
     def __init__(self, embed_dim: int = 768, tubelet_size: int = 2, mode: Optional[str] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, patch_size: int = PATCH_SIZE):
         super().__init__()
         if mode is not None and mode not in PATCH_EMBED_MODES:
             raise ValueError(f"unknown patch-embed mode {mode!r}; have {PATCH_EMBED_MODES}")
         self.tubelet_size = tubelet_size
+        self.patch_size = patch_size
         self.dtype = dtype
-        self.proj = _Conv3dParams(embed_dim, tubelet_size)
+        self.proj = _Conv3dParams(embed_dim, tubelet_size, patch_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        patches = patchify_video(x.to(self.dtype), self.tubelet_size)
+        patches = patchify_video(x.to(self.dtype), self.tubelet_size, self.patch_size)
         w = self.proj.weight  # [D, C, t, p, p] -> [t*p*p*C, D] in (t, ph, pw, c) order
         kernel = w.permute(2, 3, 4, 1, 0).reshape(-1, w.shape[0]).to(self.dtype)
         return patches @ kernel + self.proj.bias.to(self.dtype)
 
 
 class VideoViT(nn.Module):
-    """ViT video backbone on 16x16 patches: patch embed, positions, `depth`
-    blocks, final LayerNorm (skipped when `final_norm=False`).
+    """ViT video backbone on `patch_size`^2 patches (16 by default): patch
+    embed, positions, `depth` blocks, final LayerNorm (skipped when
+    `final_norm=False`); `mlp_ratio`, `qkv_bias`, `qk_scale`,
+    `init_values` and `norm_eps` reach every block (`Block`), `norm_eps`
+    the final norm too.
     `use_cls_token` prepends a learned CLS token and
     `num_extra_suffix_tokens` appends learned tokens (`scene_token`, the
     multi-task scene token), both before the positions are added
@@ -440,26 +508,28 @@ class VideoViT(nn.Module):
                  use_learnable_pos_emb: bool = False, img_size: int = 224, num_frames: int = 16,
                  final_norm: bool = True, fused_attention: bool = False, exact_gelu: bool = False,
                  patch_embed_mode: Optional[str] = None, input_norm: bool = False, remat: bool = False,
-                 int8_dense: bool = False, dtype: torch.dtype = torch.float32):
+                 int8_dense: bool = False, mlp_ratio: float = MLP_RATIO, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None, init_values: float = 0.0, patch_size: int = PATCH_SIZE,
+                 norm_eps: float = NORM_EPS, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.embed_dim = embed_dim
         self.remat = remat
         self.input_norm = input_norm
         self.dtype = dtype
         self.drop_rate = drop_rate
-        self.patch_embed = PatchEmbed3D(embed_dim, tubelet_size, patch_embed_mode, dtype)
+        self.patch_embed = PatchEmbed3D(embed_dim, tubelet_size, patch_embed_mode, dtype, patch_size)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim)) if use_cls_token else None
         self.scene_token = (nn.Parameter(torch.zeros(1, num_extra_suffix_tokens, embed_dim))
                             if num_extra_suffix_tokens else None)
-        n_tokens = (num_frames // tubelet_size) * (img_size // PATCH_SIZE) ** 2 + int(use_cls_token) \
+        n_tokens = (num_frames // tubelet_size) * (img_size // patch_size) ** 2 + int(use_cls_token) \
             + num_extra_suffix_tokens
         self.pos_embed = nn.Parameter(torch.zeros(1, n_tokens, embed_dim)) if use_learnable_pos_emb else None
         dpr = np.linspace(0.0, drop_path_rate, depth)
         self.blocks = nn.ModuleList([
             Block(embed_dim, num_heads, fused_attention, exact_gelu, dtype, drop_rate, attn_drop_rate, float(dpr[i]),
-                  int8_dense)
+                  int8_dense, mlp_ratio, qkv_bias, qk_scale, init_values, norm_eps)
             for i in range(depth)])
-        self.norm = FastLayerNorm(embed_dim, dtype) if final_norm else None
+        self.norm = FastLayerNorm(embed_dim, dtype, norm_eps) if final_norm else None
         self._pos_cache: Dict[Tuple[int, torch.device], torch.Tensor] = {}
 
     def init_own_params(self, generator: torch.Generator) -> None:

@@ -552,3 +552,31 @@ def test_int8_dot_on_the_card_equals_the_cpu(card):
     got = int8_dot(x.to(card), w.to(card)).cpu()
     assert got.shape == want.shape == (2, 1569, 2304)
     assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("qk_scale", [None, 0.1], ids=["default", "scale_0.1"])
+def test_geometry_attention_through_k1_matches_its_plain_version(card, qk_scale):
+    """A ViT-B `Attention` without q/v biases at N = 392 (32x32 patches of
+    16x224x224 clips), bf16, with K1 and with its plain version on the same
+    weights: one K1 launch (a scale that is not a power of two applied to
+    q before the kernel), the outputs within the kernel phase's PLAIN_TOL
+    of the plain output's RMS; `return_attn=True` launches nothing and its
+    probability rows sum to 1."""
+    from chip_smoke import PLAIN_TOL
+    from devias_tpu_torch.nn.vit import Attention, init_weights
+
+    attn = Attention(768, 12, fused=True, dtype=torch.bfloat16, qkv_bias=False, qk_scale=qk_scale)
+    init_weights(attn, torch.Generator().manual_seed(5))
+    attn = attn.to(card).eval()
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(2, 392, 768)).astype(np.float32)).to(card)
+    x = x.to(torch.bfloat16)
+    with torch.no_grad():
+        fused_attention_qkv.launches = 0
+        got = attn(x).float()
+        assert fused_attention_qkv.launches == 1
+        plain_out, probs = attn(x, return_attn=True)
+        assert fused_attention_qkv.launches == 1
+    want = plain_out.float()
+    rms = want.square().mean().sqrt().item()
+    assert (got - want).abs().max().item() <= PLAIN_TOL * rms
+    assert (probs.float().sum(-1) - 1).abs().max().item() <= 1e-2

@@ -10,7 +10,11 @@ depth 4), over four gloo ranks:
 (c) the full slot step over two data rows of two stages, two steps,
     against JAX's step on `make_pp_mesh(2)` (loss at rel 2e-4, parameters
     at rel 2e-4 / atol 2e-5, as `tests/test_pp_full_step.py` holds it), the
-    ranks bitwise equal;
+    ranks bitwise equal; also with LayerScale (`init_values` 0.1: each
+    block's gammas go with its stage), where an element that fails the
+    tolerance must be one whose step Adam took on a rounding-noise
+    gradient, as for ZERO_GRAD: within the two steps' lr, at most
+    `NOISE_SHARE` of a tensor;
 (d) a stochastic step (drop-path 0.2, dropout 0.1, FAME) that is finite and
     moves the parameters, and stochastic tokens bitwise equal to the same
     blocks run in one process with the draws of `block_seed`, whose
@@ -38,6 +42,9 @@ OPT = dict(lr=1e-3, total_steps=20, warmup_steps=0, num_layers=4)
 B, STEPS = 8, 2
 LR_SUM = STEPS * OPT["lr"]
 LAYOUTS = ((2, 2, 2), (1, 4, 4))
+# the student's options per full-step trajectory of (c)
+FULL_STEP = {"full": {}, "layerscale": dict(init_values=0.1)}
+NOISE_SHARE = 1e-4
 
 
 def _videos():
@@ -75,25 +82,29 @@ def _jax_side(out: Path) -> dict:
     backbone_grads = {}
     backbone_from_jax(backbone_grads, jax.tree.map(np.asarray, grads))
 
-    # (c) the full step on (2 data, 2 pipe)
-    tx, lr_fn = jax_make_optimizer(params, JaxOptimConfig(**OPT))
+    # (c) the full step on (2 data, 2 pipe), without and with LayerScale
     mesh2 = make_pp_mesh(2, devices=devices)
-    step = jax.jit(jax_make_slot_train_step(jm, jt, tx, JaxSlotLossConfig(5, 4),
-                                            JaxTrainStepConfig(use_fame=False, pp_microbatches=2), lr_fn,
-                                            pp_mesh=mesh2))
-    state = JaxTrainState.create(params, tx)
     data = np.random.default_rng(5)
     batches = [{"videos": data.normal(size=(B, T, HW, HW, 3)).astype(np.float32) * 0.3,
                 "labels": data.integers(0, 5, size=B)} for _ in range(STEPS)]
-    metrics = []
-    for batch in batches:
-        with mesh2:
-            state, m = step(state, tparams, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(5))
-        metrics.append({k: float(v) for k, v in m.items()})
     ref = {"student": state_dict_from_jax(params, "slot", SLOT["agg_depth"]),
-           "teacher": state_dict_from_jax(tparams, "plain"), "backbone_grads": backbone_grads, "batches": batches,
-           "metrics": metrics,
-           "final": state_dict_from_jax(jax.tree.map(np.asarray, state.params), "slot", SLOT["agg_depth"])}
+           "teacher": state_dict_from_jax(tparams, "plain"), "backbone_grads": backbone_grads, "batches": batches}
+    for variant, kw in FULL_STEP.items():
+        jm, params = jax_params("slot_vit_base_patch16_224", 3, **SLOT, **kw)
+        tx, lr_fn = jax_make_optimizer(params, JaxOptimConfig(**OPT))
+        step = jax.jit(jax_make_slot_train_step(jm, jt, tx, JaxSlotLossConfig(5, 4),
+                                                JaxTrainStepConfig(use_fame=False, pp_microbatches=2), lr_fn,
+                                                pp_mesh=mesh2))
+        state = JaxTrainState.create(params, tx)
+        metrics = []
+        for batch in batches:
+            with mesh2:
+                state, m = step(state, tparams, {k: jnp.asarray(v) for k, v in batch.items()},
+                                jax.random.PRNGKey(5))
+            metrics.append({k: float(v) for k, v in m.items()})
+        ref[variant] = {"student": state_dict_from_jax(params, "slot", SLOT["agg_depth"]), "metrics": metrics,
+                        "final": state_dict_from_jax(jax.tree.map(np.asarray, state.params), "slot",
+                                                     SLOT["agg_depth"])}
     torch.save(ref, out / "ref.pt")
     return ref
 
@@ -157,14 +168,16 @@ def _rank_main(rank: int, out: Path) -> None:
     # (c) the full step on (2 data, 2 pipe), and (d) a stochastic one
     mesh = make_pp_mesh(2)
     rows = slice(mesh.data_rank * B // 2, (mesh.data_rank + 1) * B // 2)
-    for name, kw, cfg in (("full", {}, TrainStepConfig(use_fame=False, pp_microbatches=2)),
+    full = TrainStepConfig(use_fame=False, pp_microbatches=2)
+    for name, kw, cfg in (*((v, kw, full) for v, kw in FULL_STEP.items()),
                           ("stochastic", dict(drop_path_rate=0.2, drop_rate=0.1),
                            TrainStepConfig(use_fame=True, pp_microbatches=2))):
-        model, teacher = port_models(ref["student"], ref["teacher"], dict(SLOT, **kw))
+        student = ref[name]["student"] if name in FULL_STEP else ref["student"]
+        model, teacher = port_models(student, ref["teacher"], dict(SLOT, **kw))
         opt, lr_fn = make_optimizer(model, OptimConfig(**OPT), device="cpu")
         state = TrainState.create(model, opt, device="cpu")
         step = make_slot_train_step(model, teacher, opt, SlotLossConfig(5, 4), cfg, lr_fn, pp_mesh=mesh, device="cpu")
-        batches = ref["batches"] if name == "full" else ref["batches"][:1]
+        batches = ref["batches"] if name in FULL_STEP else ref["batches"][:1]
         metrics = [step(state, {k: v[rows] for k, v in b.items()}, generator=torch.Generator().manual_seed(3),
                         host_metrics=True) for b in batches]
         res[name] = {"metrics": metrics, "final": {n: p.detach().clone() for n, p in model.named_parameters()}}
@@ -203,20 +216,28 @@ def test_backbone_grads_match_jax_pipeline_grads(run):
             np.testing.assert_allclose(g.numpy(), want[name], rtol=5e-5, atol=5e-5, err_msg=name)
 
 
-def test_full_slot_step_matches_jax_and_ranks_agree(run):
+@pytest.mark.parametrize("variant", sorted(FULL_STEP))
+def test_full_slot_step_matches_jax_and_ranks_agree(run, variant):
     """(c) two steps on (2 data, 2 pipe)."""
     ref, ranks = run
+    want = ref[variant]
     for res in ranks:
-        for m, w in zip(res["full"]["metrics"], ref["metrics"]):
+        if variant == "layerscale":
+            assert {f"blocks.{i}.gamma_{j}" for i in range(4) for j in (1, 2)} <= set(res[variant]["final"])
+        for m, w in zip(res[variant]["metrics"], want["metrics"]):
             assert m["loss"] == pytest.approx(w["loss"], rel=2e-4)
-        for name, p in res["full"]["final"].items():
+        for name, p in res[variant]["final"].items():
+            got, ref_p = p.numpy(), want["final"][name]
             if name in ZERO_GRAD:  # Adam's step on rounding noise: within the two steps' lr
-                assert np.abs(p.numpy() - ref["final"][name]).max() <= 2 * LR_SUM, name
+                assert np.abs(got - ref_p).max() <= 2 * LR_SUM, name
+            elif variant == "full":
+                np.testing.assert_allclose(got, ref_p, rtol=2e-4, atol=2e-5, err_msg=name)
             else:
-                np.testing.assert_allclose(p.numpy(), ref["final"][name], rtol=2e-4, atol=2e-5, err_msg=name)
+                off = np.abs(got - ref_p) > 2e-5 + 2e-4 * np.abs(ref_p)
+                assert off.mean() <= NOISE_SHARE and np.abs(got - ref_p)[off].max(initial=0.0) <= 2 * LR_SUM, name
     for res in ranks[1:]:
-        for name, p in res["full"]["final"].items():
-            assert torch.equal(p, ranks[0]["full"]["final"][name]), name
+        for name, p in res[variant]["final"].items():
+            assert torch.equal(p, ranks[0][variant]["final"][name]), name
 
 
 def test_stochastic_step_is_finite_and_moves_the_parameters(run):

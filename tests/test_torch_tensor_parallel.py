@@ -6,13 +6,17 @@ small size (depth 2, width 64, 4 heads, 4x32x32 clips, no FAME):
     port's names through `ckpt/from_jax.py`;
 (b) a two-step trajectory over two data rows of two model ranks against
     the JAX step on `make_mesh(model_parallel=2)` with
-    `shard_train_state(tp=True)`: the loss at rel 2e-4, and the final
+    `shard_train_state(tp=True)`, also with LayerScale (`init_values`
+    0.1: the gammas stay whole on every rank, as `tp_param_spec` leaves
+    them): the loss at rel 2e-4, and the final
     parameters, gathered back to the reference layout, at rel 2e-4 / atol
     2e-5, as `tests/test_tp_full_step.py` holds JAX's own TP step (the one
     bias whose true gradient is zero, `ZERO_GRAD`, within the two steps'
     lr); every rank gathers the same state, bitwise;
 (c) the TP eval forward (K1's plain version on 2 of the 4 heads per rank)
-    against the one-process forward of the same weights;
+    against the one-process forward of the same weights, for (b)'s
+    students and one without the q and v biases (the qkv rows still cut by
+    heads);
 (d) `tp` with `zero1` or `fsdp` raises.
 
 The JAX side runs in the pytest process on a 4-device slice of the
@@ -34,6 +38,10 @@ SLOT = dict(num_classes=5, num_scene_classes=4, num_latents=2, agg_depth=2, dept
 OPT = dict(lr=1e-3, total_steps=20, warmup_steps=0, num_layers=2)
 B, STEPS, TP = 8, 2, 2
 LR_SUM = STEPS * OPT["lr"]  # no warmup: the lr of both steps is at most OPT's
+# the student's options per trajectory
+VARIANTS = {"plain": {}, "layerscale": dict(init_values=0.1)}
+# and for the eval forward only (the plain student's weights without the biases)
+EVAL_VARIANTS = dict(VARIANTS, no_qkv_bias=dict(qkv_bias=False))
 
 
 def _jax_side(out: Path) -> dict:
@@ -49,24 +57,26 @@ def _jax_side(out: Path) -> dict:
     from devias_tpu.train import make_slot_train_step as jax_make_slot_train_step
     from devias_tpu_torch.ckpt.from_jax import state_dict_from_jax
 
-    jm, params = jax_params("slot_vit_base_patch16_224", 3, **SLOT)
     jt, tparams = jax_params("vit_base_patch16_224", 4, **TEACHER)
-    tx, lr_fn = jax_make_optimizer(params, JaxOptimConfig(**OPT))
-    step = jax.jit(jax_make_slot_train_step(jm, jt, tx, JaxSlotLossConfig(5, 4), JaxTrainStepConfig(use_fame=False),
-                                            lr_fn))
     mesh = make_mesh(model_parallel=TP, devices=jax.devices()[:WORLD])
-    state = shard_train_state(JaxTrainState.create(params, tx), mesh, tp=True)
     data = np.random.default_rng(5)
     batches = [{"videos": data.normal(size=(B, T, HW, HW, 3)).astype(np.float32) * 0.3,
                 "labels": data.integers(0, 5, size=B)} for _ in range(STEPS)]
-    metrics = []
-    for s, batch in enumerate(batches):
-        with mesh:
-            state, m = step(state, tparams, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(5))
-        metrics.append({k: float(v) for k, v in m.items()})
-    ref = {"student": state_dict_from_jax(params, "slot", SLOT["agg_depth"]),
-           "teacher": state_dict_from_jax(tparams, "plain"), "batches": batches, "metrics": metrics,
-           "final": state_dict_from_jax(jax.tree.map(np.asarray, state.params), "slot", SLOT["agg_depth"])}
+    ref = {"teacher": state_dict_from_jax(tparams, "plain"), "batches": batches}
+    for variant, kw in VARIANTS.items():
+        jm, params = jax_params("slot_vit_base_patch16_224", 3, **SLOT, **kw)
+        tx, lr_fn = jax_make_optimizer(params, JaxOptimConfig(**OPT))
+        step = jax.jit(jax_make_slot_train_step(jm, jt, tx, JaxSlotLossConfig(5, 4),
+                                                JaxTrainStepConfig(use_fame=False), lr_fn))
+        state = shard_train_state(JaxTrainState.create(params, tx), mesh, tp=True)
+        metrics = []
+        for batch in batches:
+            with mesh:
+                state, m = step(state, tparams, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(5))
+            metrics.append({k: float(v) for k, v in m.items()})
+        ref[variant] = {"student": state_dict_from_jax(params, "slot", SLOT["agg_depth"]), "metrics": metrics,
+                        "final": state_dict_from_jax(jax.tree.map(np.asarray, state.params), "slot",
+                                                     SLOT["agg_depth"])}
     torch.save(ref, out / "ref.pt")
     return ref
 
@@ -82,22 +92,31 @@ def _rank_main(rank: int, out: Path) -> None:
     assert maybe_init_distributed("cpu") and dist.get_backend() == "gloo"
     ref = torch.load(out / "ref.pt", weights_only=False)
     mesh = make_mesh(model_parallel=TP)
-    model, teacher = port_models(ref["student"], ref["teacher"], SLOT)
-    plain, _ = port_models(ref["student"], ref["teacher"], SLOT)
-    opt, lr_fn = make_optimizer(model, OptimConfig(**OPT), device="cpu")
-    state = shard_train_state(TrainState.create(model, opt, device="cpu"), mesh, tp=True)
     local = B // mesh.data_size
     rows = slice(mesh.data_rank * local, (mesh.data_rank + 1) * local)
     clips = torch.from_numpy(ref["batches"][0]["videos"][rows])
-    with torch.no_grad():
-        res = {"layout": (mesh.data_rank, mesh.data_size, mesh.model_rank, mesh.model_size),
-               "eval": model.eval()(clips)["action_logit"], "eval_one_process": plain.eval()(clips)["action_logit"],
-               "qkv_shape": tuple(model.blocks[0].attn.qkv.weight.shape)}
-    step = make_slot_train_step(model, teacher, opt, SlotLossConfig(5, 4), TrainStepConfig(use_fame=False), lr_fn,
-                                dp_mesh=mesh, device="cpu")
-    res["metrics"] = [step(state, {k: v[rows] for k, v in b.items()}, host_metrics=True) for b in ref["batches"]]
-    names = dict(model.named_parameters())  # a tied agg round's other keys name the same tensors
-    res["final"] = {k: v for k, v in state.placement.full_model_state().items() if k in names}
+    res = {"layout": (mesh.data_rank, mesh.data_size, mesh.model_rank, mesh.model_size)}
+    for variant, kw in EVAL_VARIANTS.items():
+        student = ref[variant if variant in VARIANTS else "plain"]["student"]
+        if not kw.get("qkv_bias", True):
+            student = {k: v for k, v in student.items() if not k.endswith(("q_bias", "v_bias"))}
+        model, teacher = port_models(student, ref["teacher"], dict(SLOT, **kw))
+        plain, _ = port_models(student, ref["teacher"], dict(SLOT, **kw))
+        opt, lr_fn = make_optimizer(model, OptimConfig(**OPT), device="cpu")
+        state = shard_train_state(TrainState.create(model, opt, device="cpu"), mesh, tp=True)
+        with torch.no_grad():
+            got = {"eval": model.eval()(clips)["action_logit"], "eval_one_process": plain.eval()(clips)["action_logit"],
+                   "qkv_shape": tuple(model.blocks[0].attn.qkv.weight.shape)}
+        if variant not in VARIANTS:
+            res[variant] = got
+            continue
+        step = make_slot_train_step(model, teacher, opt, SlotLossConfig(5, 4), TrainStepConfig(use_fame=False),
+                                    lr_fn, dp_mesh=mesh, device="cpu")
+        got["metrics"] = [step(state, {k: v[rows] for k, v in b.items()}, host_metrics=True) for b in ref["batches"]]
+        names = dict(model.named_parameters())  # a tied agg round's other keys name the same tensors
+        got["final"] = {k: v for k, v in state.placement.full_model_state().items() if k in names}
+        got["gamma_shape"] = None if model.blocks[0].gamma_1 is None else tuple(model.blocks[0].gamma_1.shape)
+        res[variant] = got
     torch.save(res, out / f"rank{rank}.pt")
     dist.destroy_process_group()
 
@@ -135,29 +154,35 @@ def test_cut_parameters_are_tp_param_spec_leaves():
         "attn.qkv.weight", "attn.proj.weight", "mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight")}
 
 
-def test_trajectory_matches_jax_and_ranks_agree(run):
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_trajectory_matches_jax_and_ranks_agree(run, variant):
     """(b) loss per step, and the gathered final parameters."""
     ref, ranks = run
+    want = ref[variant]
     assert [r["layout"] for r in ranks] == [(r // TP, WORLD // TP, r % TP, TP) for r in range(WORLD)]
-    for res in ranks:
+    for res in (r[variant] for r in ranks):
         assert res["qkv_shape"] == (3 * 64 // TP, 64)
-        for m, w in zip(res["metrics"], ref["metrics"]):
+        assert res["gamma_shape"] == ((64,) if variant == "layerscale" else None)
+        for m, w in zip(res["metrics"], want["metrics"]):
             assert m["loss"] == pytest.approx(w["loss"], rel=2e-4)
+        assert set(res["final"]) == {k for k in want["final"] if not k.startswith("agg_block.layers.1.")}
         for name, v in res["final"].items():
             if name in ZERO_GRAD:  # Adam's step on rounding noise: within the two steps' lr
-                assert np.abs(v.numpy() - ref["final"][name]).max() <= 2 * LR_SUM, name
+                assert np.abs(v.numpy() - want["final"][name]).max() <= 2 * LR_SUM, name
             else:
-                np.testing.assert_allclose(v.numpy(), ref["final"][name], rtol=2e-4, atol=2e-5, err_msg=name)
+                np.testing.assert_allclose(v.numpy(), want["final"][name], rtol=2e-4, atol=2e-5, err_msg=name)
     for res in ranks[1:]:
-        for name, v in res["final"].items():
-            assert torch.equal(v, ranks[0]["final"][name]), name
+        for name, v in res[variant]["final"].items():
+            assert torch.equal(v, ranks[0][variant]["final"][name]), name
 
 
-def test_tp_eval_forward_matches_the_one_process_forward(run):
+@pytest.mark.parametrize("variant", sorted(EVAL_VARIANTS))
+def test_tp_eval_forward_matches_the_one_process_forward(run, variant):
     """(c) the TP forward in eval mode, each rank's own row of clips."""
     _, ranks = run
     for res in ranks:
-        torch.testing.assert_close(res["eval"], res["eval_one_process"], rtol=1e-5, atol=1e-5)
+        assert res[variant]["qkv_shape"] == (3 * 64 // TP, 64)
+        torch.testing.assert_close(res[variant]["eval"], res[variant]["eval_one_process"], rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("other", ["zero1", "fsdp"])
