@@ -21,6 +21,7 @@ import torch.distributed as dist
 
 from devias_tpu_torch.device import DeviceLike, resolve_device
 from devias_tpu_torch.eval.merge import merge_results, write_result_file
+from devias_tpu_torch.utils.profiling import span
 
 
 def _pad_batch(videos: np.ndarray, batch_size: int):
@@ -60,8 +61,6 @@ def _start_fetch(handles):
 def _finish_fetch(fetch):
     """Wait for `_start_fetch`'s copies and return numpy arrays."""
     copied, event = fetch
-    if event is not None:
-        event.synchronize()
 
     def to_np(h):
         if isinstance(h, tuple):
@@ -71,7 +70,10 @@ def _finish_fetch(fetch):
             return (h.float() if h.dtype == torch.bfloat16 else h).numpy()
         return h
 
-    return to_np(copied)
+    with span("eval.fetch"):
+        if event is not None:
+            event.synchronize()
+        return to_np(copied)
 
 
 def _pipelined(loader, dispatch):

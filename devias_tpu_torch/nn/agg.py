@@ -30,6 +30,7 @@ from torch import nn
 
 from devias_tpu_torch.nn.pos_encoding import build_position_encoding
 from devias_tpu_torch.nn.vit import Linear, dropout
+from devias_tpu_torch.utils.profiling import span
 
 # torch nn.LayerNorm's default eps: the agg block's norms use it, unlike the
 # backbone's 1e-6
@@ -213,14 +214,15 @@ class AggregationBlock(nn.Module):
 
     def forward(self, context: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        k_pos = self._k_pos(context)
-        unique = self.layers[:1] if self.weight_tie else self.layers
-        kvw = [(*layer.project_kv(context, k_pos), layer.weights()) for layer in unique]
-        x = self.latents.to(self.dtype)[None].expand(context.shape[0], -1, -1)
-        P = None
-        for i in range(self.depth):
-            layer = self.layers[i]
-            k, v, w = kvw[0 if self.weight_tie else i]
-            x, P = layer.round(x, k, v, w, generator, self.training)
-        return (x if self.last_layer is None else self.last_layer(x)), P
+        with span("nn.agg"):
+            k_pos = self._k_pos(context)
+            unique = self.layers[:1] if self.weight_tie else self.layers
+            kvw = [(*layer.project_kv(context, k_pos), layer.weights()) for layer in unique]
+            x = self.latents.to(self.dtype)[None].expand(context.shape[0], -1, -1)
+            P = None
+            for i in range(self.depth):
+                layer = self.layers[i]
+                k, v, w = kvw[0 if self.weight_tie else i]
+                x, P = layer.round(x, k, v, w, generator, self.training)
+            return (x if self.last_layer is None else self.last_layer(x)), P
 

@@ -6,9 +6,15 @@ slot student's forward and backward, the loss, AdamW) with
 `torch.profiler` through `utils/profiling.py::profile_trace`, then reads
 the exported Chrome trace's CUDA kernel, copy and set events and prints
 the card's ms per step, ms per step by kernel family (`KERNEL_CLASSES`),
-the top kernels with their launches per step, and the tail below them
-grouped by name prefix. `--segformer` swaps FAME for the frozen B3 mask
-model (random weights; `--mask_model Segformer`).
+the top kernels with their launches per step, the tail below them
+grouped by name prefix, and the card's ms per step by program span
+(`utils/profiling.py::SPANS`) and family: each kernel, copy or set goes
+to the innermost span whose host range holds its launch, found through
+the trace's correlation ids (the trace's `gpu_user_annotation` ranges
+hold only what the span's own thread launched, and so none of the
+backward's kernels, which autograd's thread launches). `--segformer`
+swaps FAME for the frozen B3 mask model (random weights; `--mask_model
+Segformer`).
 
     python -m devias_tpu_torch.scripts.profile_step [--steps 5] [--out DIR] [--aggregate_only]
         [--top 60] [--segformer] [--device cpu]
@@ -39,7 +45,7 @@ from devias_tpu_torch.losses import SlotLossConfig
 from devias_tpu_torch.nn import create_model
 from devias_tpu_torch.nn.segformer import create_segformer, segformer_b3
 from devias_tpu_torch.train import OptimConfig, TrainState, TrainStepConfig, make_optimizer, make_slot_train_step
-from devias_tpu_torch.utils.profiling import profile_trace
+from devias_tpu_torch.utils.profiling import SPANS, profile_trace
 
 BATCH = 12
 WARMUP_STEPS = 3
@@ -53,6 +59,10 @@ KERNEL_CLASSES = (
 )
 # the Chrome trace's categories of work on the card
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+# the host's launches of the card's work
+LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
+# the card's work that no program span launched
+NO_SPAN = "(no span)"
 
 
 def kernel_class(name: str) -> str:
@@ -157,10 +167,27 @@ def run_and_trace(out_dir: str, steps: int, segformer: bool = False, device: Dev
         float(metrics["loss"])
 
 
+def innermost_span(ranges: list, ts: float) -> str:
+    """The name of the innermost of `ranges` ((start, end, name), sorted by
+    start, the longer first at one start) that holds `ts`: of those holding
+    it, the last in that order; NO_SPAN for none or a `ts` of None."""
+    name = NO_SPAN
+    if ts is None:
+        return name
+    for start, end, n in ranges:
+        if start > ts:
+            break
+        if ts < end:
+            name = n
+    return name
+
+
 def aggregate(out_dir: str, steps: int, top: int = 60) -> dict:
     """Read the newest trace under `out_dir` and print the card's ms per
-    step, by family, the `top` kernels (ms and launches per step) and the
-    tail below them by `name_prefix`. Returns the same numbers."""
+    step, by family, the `top` kernels (ms and launches per step), the
+    tail below them by `name_prefix`, and by program span and family (each
+    kernel under the innermost span whose host range holds its launch).
+    Returns the same numbers."""
     files = glob.glob(os.path.join(out_dir, "**", "*.json"), recursive=True)
     if not files:
         raise FileNotFoundError(f"no trace json under {out_dir}")
@@ -168,10 +195,20 @@ def aggregate(out_dir: str, steps: int, top: int = 60) -> dict:
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
     per_op, per_op_n = collections.Counter(), collections.Counter()
+    # the program's spans on the host, by start, the longer first where two
+    # start together; the host time of each launch by correlation id
+    ranges = sorted(((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                     if e.get("ph") == "X" and e.get("cat") == "user_annotation" and e.get("name") in SPANS),
+                    key=lambda r: (r[0], -r[1]))
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in LAUNCH_CATEGORIES and "correlation" in e.get("args", {})}
+    by_span = collections.defaultdict(collections.Counter)
     for e in events:
         if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES and "dur" in e:
             per_op[e["name"]] += e["dur"]
             per_op_n[e["name"]] += 1
+            launch = launched.get(e.get("args", {}).get("correlation"))
+            by_span[innermost_span(ranges, launch)][kernel_class(e["name"])] += e["dur"]
 
     def ms(us):
         return us / 1000 / steps
@@ -203,11 +240,17 @@ def aggregate(out_dir: str, steps: int, top: int = 60) -> dict:
     print(f"\n== tail (below top {top}): {ms(sum(tail.values())):.2f} ms/step ==")
     for pref, us in tail.most_common(30):
         print(f"  {ms(us):8.3f}  x{tail_n[pref] / steps:6.1f}  {pref}")
+
+    families = [k for k, _ in fam.most_common()]
+    print("\n== by program span (ms/step): " + ", ".join(families) + " ==")
+    for name, cls in sorted(by_span.items(), key=lambda kv: -sum(kv[1].values())):
+        print(f"  {name:16s} {ms(sum(cls.values())):8.2f}  " + " ".join(f"{ms(cls[k]):8.2f}" for k in families))
     return {"trace": path, "steps": steps, "device_ms_per_step": ms(total_us),
             "ms_per_step_by_family": {k: ms(us) for k, us in fam.items()},
             "top": [{"name": n, "ms": ms(us), "launches": per_op_n[n] / steps} for n, us in shown],
             "tail_ms_per_step": ms(sum(tail.values())),
-            "tail": [{"prefix": p, "ms": ms(us), "launches": tail_n[p] / steps} for p, us in tail.most_common()]}
+            "tail": [{"prefix": p, "ms": ms(us), "launches": tail_n[p] / steps} for p, us in tail.most_common()],
+            "ms_per_step_by_span": {name: {k: ms(us) for k, us in cls.items()} for name, cls in by_span.items()}}
 
 
 def main(argv=None) -> dict:

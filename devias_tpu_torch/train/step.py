@@ -33,6 +33,12 @@ accumulation, the reductions and the optimizer step (`_run_step`), and
 with it the placements of `core/dist.py::shard_train_state` (ZeRO-1,
 FSDP, TP). The slot step also takes a pipeline layout (`pp_mesh`,
 `core/pipeline.py`).
+
+The steps' phases and the eval forward are spans of `utils/profiling.py`
+(`train.step`, `train.fame`, `train.teacher`, `train.student`,
+`train.loss`, `train.backward`, `train.optimizer`, `eval.forward`), and
+`to_device` stages host arrays under `h2d.stage` and counts their bytes;
+they record only under a profiler.
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ from devias_tpu_torch.losses.slot_loss import (
     multi_task_loss,
 )
 from devias_tpu_torch.train.state import TrainState
+from devias_tpu_torch.utils.profiling import count, span
 
 METRIC_NAMES = ("loss", "action_loss", "scene_loss", "cosine_loss", "mask_prediction_loss",
                 "mask_distill_loss", "class_acc")
@@ -99,9 +106,11 @@ def to_device(videos: Union[np.ndarray, torch.Tensor], device: torch.device) -> 
     """Clips as a tensor on `device`. A host array bound for the card goes
     through pinned memory, so the copy is asynchronous to the host."""
     x = torch.from_numpy(np.ascontiguousarray(videos)) if isinstance(videos, np.ndarray) else videos
-    if device.type == "cuda" and x.device.type == "cpu":
-        x = x.pin_memory()
-    return x.to(device, non_blocking=True)
+    if device.type != "cuda" or x.device.type != "cpu":
+        return x.to(device, non_blocking=True)
+    with span("h2d.stage"):
+        count("h2d_bytes", x.numel() * x.element_size())
+        return x.pin_memory().to(device, non_blocking=True)
 
 
 def _by_shards(mix: Callable, B: int, n: int, draws):
@@ -210,21 +219,25 @@ def slot_loss(model: nn.Module, teacher: nn.Module, videos: torch.Tensor, labels
     fame_gen = backbone_gen = head_gen = generator
     if mesh is not None:
         fame_gen, backbone_gen, head_gen = rank_generators(generator, mesh, videos.device)
-    videos, labels, fg_mask, fg_pf = mix_clips(videos, labels, step_cfg, fame_gen, draws, mesh, segformer_apply)
-    with torch.no_grad():
+    with span("train.fame"):
+        videos, labels, fg_mask, fg_pf = mix_clips(videos, labels, step_cfg, fame_gen, draws, mesh,
+                                                   segformer_apply)
+    with span("train.teacher"), torch.no_grad():
         teacher_logits = teacher(videos)["logits"]
-    tokens = None
-    if sp_mesh is not None:
-        tokens = seq_parallel_tokens(model, videos, sp_mesh, deterministic=False, generator=backbone_gen)
-    elif pp_mesh is not None:
-        tokens = pipeline_tokens(model, videos, pp_mesh, step_cfg.pp_microbatches, deterministic=False,
-                                 generator=backbone_gen)
-    student = model(videos, generator=head_gen, tokens=tokens)
+    with span("train.student"):
+        tokens = None
+        if sp_mesh is not None:
+            tokens = seq_parallel_tokens(model, videos, sp_mesh, deterministic=False, generator=backbone_gen)
+        elif pp_mesh is not None:
+            tokens = pipeline_tokens(model, videos, pp_mesh, step_cfg.pp_microbatches, deterministic=False,
+                                     generator=backbone_gen)
+        student = model(videos, generator=head_gen, tokens=tokens)
     # the teacher pad's batch minimum is the global micro-batch's, as in
     # the JAX step (the reference's DDP ranks take their own)
     teacher_min = None if mesh is None else min_over_data(teacher_logits.float().min(), mesh)
-    total, action_logits, parts = devias_slot_loss(student, teacher_logits, labels, fg_mask, fg_pf, loss_cfg,
-                                                   teacher_min)
+    with span("train.loss"):
+        total, action_logits, parts = devias_slot_loss(student, teacher_logits, labels, fg_mask, fg_pf, loss_cfg,
+                                                       teacher_min)
     acc = (action_logits.argmax(dim=-1) == labels).float().mean()
     metrics = {k: v.detach() for k, v in parts.items()}
     return total, {**metrics, "loss": total.detach(), "class_acc": acc}
@@ -345,36 +358,41 @@ def _run_step(state: TrainState, optimizer: torch.optim.Optimizer, model: nn.Mod
         raise ValueError(f"batch {batch} is not a multiple of update_freq {U}")
     draws = _micro_draws(draws, U)
     mb = batch // U
-    placement = state.placement
-    if placement is not None:
-        placement.gather_params()
-    model.train()
-    optimizer.zero_grad(set_to_none=True)
-    sums = None
-    for u in range(U):
-        total, m = micro(slice(u * mb, (u + 1) * mb), generator, None if draws is None else draws[u])
-        total.backward()
-        sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
-    if mesh is not None:
-        reduce_grads(model, mesh)
-        sums = mean_over_data(sums, mesh)
-    if U > 1:
-        for p in model.parameters():
-            if p.grad is not None:
-                p.grad.div_(U)
-        sums = {k: v / U for k, v in sums.items()}
-    metrics = {k: sums[k] for k in metric_names}
-    if lr_fn is not None:
-        metrics["lr"] = torch.tensor(lr_fn(state.step), dtype=torch.float32)
-    metrics["grad_norm"] = optimizer.step()
-    optimizer.zero_grad(set_to_none=True)
-    if placement is not None:
-        placement.after_update()
-    state.update_ema()
-    state.step += 1
-    if host_metrics:
-        return {k: float(v) for k, v in metrics.items()}
-    return metrics
+    with span("train.step"):
+        placement = state.placement
+        if placement is not None:
+            placement.gather_params()
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        sums = None
+        for u in range(U):
+            total, m = micro(slice(u * mb, (u + 1) * mb), generator, None if draws is None else draws[u])
+            with span("train.backward"):
+                total.backward()
+                # the loss holds the autograd graph: free it inside the span
+                del total
+            sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
+        if mesh is not None:
+            reduce_grads(model, mesh)
+            sums = mean_over_data(sums, mesh)
+        if U > 1:
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(U)
+            sums = {k: v / U for k, v in sums.items()}
+        metrics = {k: sums[k] for k in metric_names}
+        if lr_fn is not None:
+            metrics["lr"] = torch.tensor(lr_fn(state.step), dtype=torch.float32)
+        with span("train.optimizer"):
+            metrics["grad_norm"] = optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
+            if placement is not None:
+                placement.after_update()
+            state.update_ema()
+            state.step += 1
+        if host_metrics:
+            return {k: float(v) for k, v in metrics.items()}
+        return metrics
 
 
 def _check_dp_mesh(dp_mesh: Optional[SPMesh]) -> None:
@@ -410,13 +428,17 @@ def hvu_loss(model: nn.Module, videos: torch.Tensor, action_labels: torch.Tensor
             v, a, s, (fg, pf) = fame_augment_hvu(v, a, s, step_cfg.fame, mix_gen, draws)
             return v, a, s, fg, pf
 
-        videos, action_labels, scene_labels, fg_mask, fg_pf = over_data_group(
-            op, (videos, action_labels, scene_labels), dp_mesh)
+        with span("train.fame"):
+            videos, action_labels, scene_labels, fg_mask, fg_pf = over_data_group(
+                op, (videos, action_labels, scene_labels), dp_mesh)
     else:
         fg_mask = torch.zeros(B, n_sp, device=videos.device)
         fg_pf = torch.zeros(B, (T // 2) * n_sp, device=videos.device)
-    student = model(videos, generator=model_gen)
-    total, action_logits, parts = hvu_slot_loss(student, action_labels, scene_labels, fg_mask, fg_pf, loss_cfg)
+    with span("train.student"):
+        student = model(videos, generator=model_gen)
+    with span("train.loss"):
+        total, action_logits, parts = hvu_slot_loss(student, action_labels, scene_labels, fg_mask, fg_pf,
+                                                    loss_cfg)
     acc = (action_logits.argmax(dim=-1) == action_labels).float().mean()
     metrics = {k: v.detach() for k, v in parts.items()}
     return total, {**metrics, "loss": total.detach(), "class_acc": acc}
@@ -543,7 +565,7 @@ def multi_task_loss_of(model: nn.Module, teacher: nn.Module, videos: torch.Tenso
     if dp_mesh is not None:
         model_gen = mix_generators(generator, dp_mesh, videos.device)[1]
     student = model(videos, generator=model_gen)
-    with torch.no_grad():
+    with span("train.teacher"), torch.no_grad():
         teacher_logits = teacher(videos)["logits"]
     teacher_min = None
     if unified_head and dp_mesh is not None:
@@ -607,7 +629,7 @@ def make_eval_step(model: nn.Module, output_key: Optional[str] = None,
     model.eval()
 
     def step(videos):
-        with torch.inference_mode():
+        with span("eval.forward"), torch.inference_mode():
             out = model(to_device(videos, dev))
         return out[output_key] if output_key else out
 

@@ -1,6 +1,8 @@
-"""Host-side utilities of the port: logging and profiling."""
+"""Host-side utilities of the port: logging, profiling and the program's
+spans and counters."""
 
 from devias_tpu_torch.utils.logging import MetricLogger, SmoothedValue, TensorLogger
-from devias_tpu_torch.utils.profiling import StepTimer, profile_trace
+from devias_tpu_torch.utils.profiling import count, counter_totals, profile_trace, span, span_totals
 
-__all__ = ["MetricLogger", "SmoothedValue", "StepTimer", "TensorLogger", "profile_trace"]
+__all__ = ["MetricLogger", "SmoothedValue", "TensorLogger", "count", "counter_totals", "profile_trace", "span",
+           "span_totals"]

@@ -1,8 +1,6 @@
 """The port's profiling utilities (`devias_tpu_torch/utils/profiling.py`)
-against the JAX package's, and its dry run (`devias_tpu_torch/dryrun.py`)
-on the CPU:
+and its dry run (`devias_tpu_torch/dryrun.py`) on the CPU:
 
-- `StepTimer.summary` is the JAX class's text for the same step times;
 - `profile_trace` writes a Chrome trace of a CPU block, and nothing with
   an empty directory;
 - `python -m devias_tpu_torch.dryrun 2 --device cpu` (the tiny models over
@@ -10,8 +8,9 @@ on the CPU:
 - `scripts/profile_step.py`'s family table classifies the port's kernel
   names as `chip_smoke.py`'s table did before it moved there, and its
   aggregation of a small Chrome trace gives family sums equal to the
-  device total, the top kernels' launches per step and the tail grouped
-  by name prefix."""
+  device total, the top kernels' launches per step, the tail grouped
+  by name prefix, and the device time by family under the innermost
+  program span whose host range holds each launch."""
 
 import json
 import os
@@ -26,27 +25,6 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 MODE_LINES = ("dp loss=", "dp zero1 loss=", "dp fsdp loss=", "dp x tp loss=", "dp x sp loss=",
               "dp x sp stochastic loss=", "dp x pp FULL slot step loss=", "tiny-geometry fsdp resident")
-
-
-@pytest.mark.parametrize("times,batch", [([], None), ([0.25], None), ([0.1, 0.2, 0.35], 12)])
-def test_step_timer_summary_is_jax_text(times, batch):
-    from devias_tpu.utils.profiling import StepTimer as JaxStepTimer
-    from devias_tpu_torch.utils import StepTimer
-
-    ours, theirs = StepTimer(device="cpu"), JaxStepTimer()
-    ours.times, theirs.times = list(times), list(times)
-    assert ours.summary(batch) == theirs.summary(batch)
-    assert ours.mean == theirs.mean
-
-
-def test_step_timer_times_on_the_host_clock():
-    from devias_tpu_torch.utils import StepTimer
-
-    timer = StepTimer(device="cpu")
-    timer.start()
-    time.sleep(0.02)
-    dt = timer.stop()
-    assert timer.times == [dt] and 0.015 < dt < 1.0
 
 
 def test_profile_trace_writes_a_trace(tmp_path):
@@ -136,3 +114,55 @@ def test_aggregate_reads_a_chrome_trace(tmp_path, capsys):
         {"prefix": "attention_bwd_prepass_kernel", "ms": pytest.approx(0.0005), "launches": 0.5}]
     assert report["tail_ms_per_step"] == pytest.approx(0.012)
     assert "device total: 1.10 ms/step over 2 steps" in capsys.readouterr().out
+
+
+def _event(name, ts, dur, cat, correlation=None):
+    e = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "pid": 0, "tid": 7}
+    if correlation is not None:
+        e["args"] = {"correlation": correlation}
+    return e
+
+
+def test_aggregate_splits_device_time_by_program_span(tmp_path):
+    from devias_tpu_torch.scripts.profile_step import NO_SPAN, aggregate
+
+    ew = "void at::native::vectorized_elementwise_kernel<4, at::native::AddFunctor<float>>(int, float*)"
+    host = [
+        # one step on the host: the step's span holds FAME's, the student's
+        # and the backward's, the student's holds the agg block's; the
+        # optimizer's own annotation is not a program span
+        _event("train.step", 0.0, 1000.0, "user_annotation"), _event("train.fame", 0.0, 100.0, "user_annotation"),
+        _event("train.student", 200.0, 500.0, "user_annotation"), _event("nn.agg", 600.0, 100.0, "user_annotation"),
+        _event("train.backward", 700.0, 200.0, "user_annotation"),
+        _event("Optimizer.step#FusedAdamW.step", 900.0, 50.0, "user_annotation"),
+        # the card's annotation ranges are not read
+        _event("train.loss", 0.0, 2000.0, "gpu_user_annotation"),
+    ]
+    # (launch time, launch category, kernel, its duration, category on the card)
+    work = [(10.0, "cuda_runtime", ew, 40.0, "kernel"), (50.0, "cuda_runtime", ew, 20.0, "kernel"),
+            (250.0, "cuda_runtime", "nvjet_tst_64x8_v", 300.0, "kernel"),
+            (650.0, "cuda_runtime", ew, 10.0, "kernel"),
+            (660.0, "cuda_driver", "attention_fwd_kernel", 50.0, "kernel"),
+            (150.0, "cuda_runtime", ew, 30.0, "kernel"),
+            # the backward's, launched from autograd's thread while the
+            # step's thread waits inside its span
+            (750.0, "cuda_driver", "attention_bwd_dq_kernel", 100.0, "kernel"),
+            (920.0, "cuda_runtime", ew, 20.0, "kernel"),
+            (1100.0, "cuda_runtime", "Memcpy HtoD (Pinned -> Device)", 80.0, "gpu_memcpy")]
+    events = list(host)
+    for k, (at, launch_cat, name, dur, cat) in enumerate(work):
+        events.append(dict(_event("cudaLaunchKernel", at, 5.0, launch_cat, k), tid=8 if k == 6 else 7))
+        events.append(_event(name, 2000.0 + 100 * k, dur, cat, k))
+    # a kernel whose launch the trace lacks
+    events.append(_event(ew, 5000.0, 6.0, "kernel", 99))
+    with open(tmp_path / "trace.json", "w") as f:
+        json.dump({"traceEvents": events}, f)
+    by_span = aggregate(str(tmp_path), 2, top=3)["ms_per_step_by_span"]
+    assert by_span == {
+        "train.fame": {"elementwise": pytest.approx(0.03)},
+        "train.student": {"GEMM (cuBLAS)": pytest.approx(0.15)},
+        "nn.agg": {"elementwise": pytest.approx(0.005), "attention (port's K1 and K2 kernels)": pytest.approx(0.025)},
+        "train.backward": {"attention (port's K1 and K2 kernels)": pytest.approx(0.05)},
+        "train.step": {"elementwise": pytest.approx(0.025)},
+        NO_SPAN: {"copy": pytest.approx(0.04), "elementwise": pytest.approx(0.003)},
+    }
