@@ -41,6 +41,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from devias_tpu_torch.device import device_constant
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -90,12 +92,24 @@ def _blur_band_matrix(n: int, size: int, sigma: float) -> np.ndarray:
     return M
 
 
+def _blur_matrix(n: int, size: int, sigma: float, device: torch.device) -> torch.Tensor:
+    """`_blur_band_matrix` on `device`, made once per device."""
+    return device_constant(("fame.blur", n, size, sigma), device,
+                           lambda: torch.from_numpy(_blur_band_matrix(n, size, sigma)))
+
+
 def _gaussian_blur(img: torch.Tensor, size: int, sigma: float) -> torch.Tensor:
     """Separable Gaussian blur with reflect padding on [B, H, W]."""
     _, H, W = img.shape
-    Mh = torch.from_numpy(_blur_band_matrix(H, size, sigma)).to(img.device)
-    Mw = torch.from_numpy(_blur_band_matrix(W, size, sigma)).to(img.device)
+    Mh, Mw = _blur_matrix(H, size, sigma, img.device), _blur_matrix(W, size, sigma, img.device)
     return torch.matmul(torch.matmul(Mh, img), Mw.t())
+
+
+def _channel_constant(values: Sequence[float], device: torch.device) -> torch.Tensor:
+    """A per-channel float32 constant (the mean or the std) on `device`,
+    made once per device."""
+    values = tuple(float(v) for v in values)
+    return device_constant(("fame.channels", values), device, lambda: torch.tensor(values, dtype=torch.float32))
 
 
 def _minmax_norm(m: torch.Tensor) -> torch.Tensor:
@@ -283,8 +297,7 @@ def _fame_core(videos: torch.Tensor, cfg: FAMEConfig, generator: Optional[torch.
             raise ValueError("FAME needs a torch.Generator or explicit draws")
         draws = fame_draws(videos.shape[0], cfg, generator, videos.device)
     dev = videos.device
-    mean_t = torch.tensor(mean, dtype=torch.float32, device=dev)
-    std_t = torch.tensor(std, dtype=torch.float32, device=dev)
+    mean_t, std_t = _channel_constant(mean, dev), _channel_constant(std, dev)
     denorm = videos.float() * std_t + mean_t
     mask, per_pair = compute_fame_masks(denorm, cfg)
 

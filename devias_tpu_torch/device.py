@@ -2,12 +2,14 @@
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Callable, Dict, Hashable, Tuple, Union
 
 import torch
 from torch import nn
 
 DeviceLike = Union[str, torch.device, None]
+
+_CONSTANTS: Dict[Tuple[Hashable, torch.device], torch.Tensor] = {}
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -27,3 +29,12 @@ def require_on(model: nn.Module, dev: torch.device, what: str = "model") -> None
     if where is not None and where.type != dev.type:
         raise ValueError(f"{what} is on {where}, the caller asked for {dev}")
 
+
+def device_constant(key: Hashable, device: torch.device, make: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """The constant `make()` (a host tensor) on `device`, made and copied
+    once per `key` and device. A step then copies nothing from the host:
+    such a copy waits for the card, and a CUDA graph cannot hold it."""
+    entry = (key, torch.device(device))
+    if entry not in _CONSTANTS:
+        _CONSTANTS[entry] = make().to(device)
+    return _CONSTANTS[entry]

@@ -33,7 +33,8 @@ contiguous or not 16-byte aligned), and runs its plain version on a CPU
 tensor; `m` and `l` are [B, H, Nq] float32. Each wrapper's `launches`
 counts its kernel launches; K1's also count them by head count in
 `launches_by_heads` (tensor parallelism runs K1 on a rank's share of the
-heads). The kernels are built for Hopper from
+heads); a replayed CUDA graph adds the launches its capture recorded
+(`add_launches`). The kernels are built for Hopper from
 `csrc/hopper.cuh`: TMA loads into 128-byte-swizzled tiles, wgmma products
 and a producer warpgroup beside the consumer warpgroups; the backward is
 three launches (pre-pass, dq, dkdv) over scratch the wrapper allocates.
@@ -611,3 +612,31 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for name in K1_KERNELS:
         KERNELS[name].launches_by_heads = {}
+
+
+def launches_since(counts: dict, by_heads: dict) -> tuple:
+    """The launches made since `launch_counts()` and
+    `launch_counts_by_heads()` read `counts` and `by_heads`, in their
+    shapes: what a captured CUDA graph launches on each replay."""
+    now, now_heads = launch_counts(), launch_counts_by_heads()
+    return ({k: now[k] - counts.get(k, 0) for k in now},
+            {k: {h: n - by_heads.get(k, {}).get(h, 0) for h, n in v.items()} for k, v in now_heads.items()})
+
+
+def add_launches(counts: dict, by_heads: dict) -> None:
+    """Add launches (`launches_since`'s pair) to the counts: a replayed
+    CUDA graph's, which the wrappers do not see."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n
+    for name, heads in by_heads.items():
+        fn = KERNELS[name]
+        for h, n in heads.items():
+            if n:
+                fn.launches_by_heads[h] = fn.launches_by_heads.get(h, 0) + n
+
+
+def set_launch_counts(counts: dict, by_heads: dict) -> None:
+    """Put the counts back to `launch_counts()` and
+    `launch_counts_by_heads()` as read earlier."""
+    reset_launch_counts()
+    add_launches(counts, by_heads)

@@ -47,6 +47,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from devias_tpu_torch.core.dist import SPMesh, copy_to_model_group, gather_kv, reduce_from_model_group
+from devias_tpu_torch.device import device_constant
 from devias_tpu_torch.kernels.attention import (
     attention_q_kv_reference,
     attention_qkv_reference,
@@ -557,8 +558,10 @@ class VideoViT(nn.Module):
         if self.input_norm:
             if x.dtype == torch.uint8:
                 x = x.to(self.dtype) / 255.0
-            mean = torch.tensor(IMAGENET_MEAN, dtype=self.dtype, device=x.device)
-            std = torch.tensor(IMAGENET_STD, dtype=self.dtype, device=x.device)
+            mean = device_constant(("vit.mean", self.dtype), x.device,
+                                   lambda: torch.tensor(IMAGENET_MEAN, dtype=self.dtype))
+            std = device_constant(("vit.std", self.dtype), x.device,
+                                  lambda: torch.tensor(IMAGENET_STD, dtype=self.dtype))
             x = (x - mean) / std
         x = self.patch_embed(x)
         if seq is not None:

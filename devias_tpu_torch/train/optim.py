@@ -17,7 +17,20 @@ count c (from 0), first clips the gradients by their global norm when
 `clip_grad` is set, as the optax chains do, and ends with p += -(lr *
 scale) u; `step()` returns the global norm of the gradients before
 clipping, as a device tensor. State is float32 and the parameters are
-float32 masters. u is, per `--opt`:
+float32 masters.
+
+The per-update scalars are read on the device, so that an update enqueues
+no host value that changes from one update to the next and a captured
+update replays as the next one (`train/graph.py`): a table on the
+parameters' device holds, per count, wd, the bias corrections 1 - b^(c+1)
+and -(lr * s) for each distinct scale s, each the Python float
+arithmetic's value cast to float32, as a Python scalar reaches the
+kernels; a device counter, advanced by the update itself, picks the row.
+The host `count` mirrors it and fills the table's rows in chunks, ahead
+of the count. Past the table's last row (total_steps) the counter stays
+on that row, and the table grows when the schedules' row for the count
+differs from it. The weight-decay terms add wd p, rounded on its own, to
+u or g. u is, per `--opt`:
 * adamw (FusedAdamW, `optim.py:172-184`, `:205-221`): m = b1 m + (1 - b1)
   g, v = b2 v + (1 - b2) g^2, u = (m / (1 - b1^(c+1))) / (sqrt(v / (1 -
   b2^(c+1))) + eps) + wd p [decay];
@@ -36,6 +49,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -44,6 +58,9 @@ from devias_tpu_torch.device import DeviceLike, require_on, resolve_device
 
 # the port's names of the JAX list's pos_embed, cls_token and suffix_tokens
 NO_DECAY_NAMES = ("pos_embed", "cls_token", "scene_token")
+# columns of the schedule table: wd, 1 - b1^(c+1), 1 - b2^(c+1), then
+# -(lr * s) for each distinct lr scale s
+WD, BC1, BC2, LR_SCALED = 0, 1, 2, 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,13 +109,18 @@ def decays(name: str, param: torch.Tensor) -> bool:
 class ScheduledOptimizer(torch.optim.Optimizer):
     """The part every optimizer of the port shares: one lr scale and one
     decay flag per parameter, scheduled lr and weight decay read at the
-    update count, the global-norm clip, and a state dict that carries the
-    count. One parameter group; a subclass names its float32 buffers in
-    BUFFERS (kept in `self.state[p]`) and defines `_update(params, grads,
-    lr, wd)`, which returns the step's unscaled update u of each
-    parameter."""
+    update count from the device table (module docstring), the global-norm
+    clip, and a state dict that carries the count. One parameter group; a
+    subclass names its float32 buffers in BUFFERS (kept in
+    `self.state[p]`) and defines `_update(params, grads, row)`, which
+    returns the step's unscaled update u of each parameter from the
+    count's table row (0-d device tensors at `WD`, `BC1`, `BC2`).
+    `version` changes whenever the table or the state's tensors are
+    replaced."""
 
     BUFFERS: Tuple[str, ...] = ()
+    # rows of the schedule table computed at a time
+    TABLE_CHUNK = 2048
 
     def __init__(self, named_params: Iterable[Tuple[str, nn.Parameter]], cfg: OptimConfig,
                  lr_fn: Callable[[int], float], wd_fn: Callable[[int], float]):
@@ -120,6 +142,62 @@ class ScheduledOptimizer(torch.optim.Optimizer):
         for _, p in named:
             for buf in self.BUFFERS:
                 self.state[p][buf] = torch.zeros_like(p, dtype=torch.float32)
+        # the parameters of each distinct lr scale, by index
+        self.scale_values = sorted(set(self.scales))
+        self.scale_groups = [[i for i, s in enumerate(self.scales) if s == v] for v in self.scale_values]
+        self._device = named[0][1].device if named else torch.device("cpu")
+        self.version = 0
+        self._counter = torch.zeros((), dtype=torch.int64, device=self._device)
+        self._table, self._filled, self._wd_zero = None, 0, True
+        self._new_table(max(cfg.total_steps, cfg.warmup_steps + 1, 1))
+        self.extend_schedule()
+
+    def _rows(self, start: int, stop: int) -> np.ndarray:
+        """The table's rows for counts start..stop-1, float32."""
+        b1, b2 = self.cfg.beta1, self.cfg.beta2
+        counts = range(start, stop)
+        cols = np.array([[self.wd_fn(c) for c in counts], [1 - b1 ** (c + 1) for c in counts],
+                         [1 - b2 ** (c + 1) for c in counts]], dtype=np.float64).T
+        lr = np.array([self.lr_fn(c) for c in counts], dtype=np.float64)
+        scaled = -(lr[:, None] * np.array(self.scale_values, dtype=np.float64)[None, :])
+        return np.concatenate([cols, scaled], axis=1).astype(np.float32)
+
+    def _new_table(self, n: int) -> None:
+        """A table of n rows that keeps the filled rows of the last one."""
+        table = torch.empty((n, LR_SCALED + len(self.scale_values)), dtype=torch.float32, device=self._device)
+        if self._filled:
+            table[:self._filled].copy_(self._table[:self._filled])
+        self._table = table
+        self.version += 1
+
+    def _fill(self, stop: int) -> None:
+        """Fill the rows from the first unfilled one to `stop`, in stream
+        order: the updates in flight read rows before them."""
+        rows = self._rows(self._filled, stop)
+        src = torch.from_numpy(rows)
+        self._table[self._filled:stop].copy_(src.pin_memory() if self._device.type == "cuda" else src,
+                                             non_blocking=True)
+        self._filled, self._last_row = stop, rows[-1]
+        if self._wd_zero and rows[:, WD].any():
+            # an update made while wd was zero everywhere added no wd p
+            self._wd_zero = False
+            self.version += 1
+
+    def extend_schedule(self) -> None:
+        """Make the table hold the row of the update at `count`: fill it
+        TABLE_CHUNK rows at a time, ahead of the count; past its last row,
+        where the counter stays, grow it when the schedules' row for the
+        count differs from that one."""
+        n = self._table.shape[0]
+        if self.count >= n:
+            if self._filled < n:
+                self._fill(n)
+            if np.array_equal(self._rows(self.count, self.count + 1)[0], self._last_row):
+                return
+            n = max(2 * n, self.count + 1)
+            self._new_table(n)
+        if self.count >= self._filled:
+            self._fill(min(n, max(self.count + 1, self._filled + self.TABLE_CHUNK)))
 
     def state_dict(self) -> dict:
         """torch's optimizer state dict plus the update count the schedules
@@ -131,6 +209,8 @@ class ScheduledOptimizer(torch.optim.Optimizer):
         count = int(state_dict.pop("count"))
         super().load_state_dict(state_dict)
         self.count = count
+        self._counter.fill_(count)
+        self.version += 1
 
     def _global_norm(self, grads) -> torch.Tensor:
         """The gradients' global norm; under TP the cut parameters' squared
@@ -147,15 +227,20 @@ class ScheduledOptimizer(torch.optim.Optimizer):
     def _buffers(self, name: str):
         return [self.state[p][name] for p in self.param_groups[0]["params"]]
 
-    def _add_l2(self, grads, params, wd: float) -> list:
-        """g + wd p on the decayed parameters (new tensors: `grads` may be
-        the parameters' own .grad)."""
-        grads = list(grads)
+    def _add_wd(self, to, params, wd: torch.Tensor, inplace: bool = False) -> list:
+        """`to` + wd p on the decayed parameters: in place, or as new
+        tensors (`to` may be the parameters' own .grad)."""
+        to = list(to)
         dec = [i for i, d in enumerate(self.decay) if d]
-        if dec and wd != 0.0:
-            for i, g in zip(dec, torch._foreach_add([grads[i] for i in dec], [params[i] for i in dec], alpha=wd)):
-                grads[i] = g
-        return grads
+        if not dec or self._wd_zero:
+            return to
+        terms = torch._foreach_mul([params[i] for i in dec], wd)
+        if inplace:
+            torch._foreach_add_([to[i] for i in dec], terms)
+        else:
+            for i, t in zip(dec, torch._foreach_add([to[i] for i in dec], terms)):
+                to[i] = t
+        return to
 
     @torch.no_grad()
     def step(self, closure=None) -> torch.Tensor:
@@ -172,13 +257,16 @@ class ScheduledOptimizer(torch.optim.Optimizer):
             torch._foreach_mul_(clipped, cfg.clip_grad)
             keep = norm < cfg.clip_grad
             grads = [torch.where(keep, g, c) for g, c in zip(grads, clipped)]
-        lr, wd = self.lr_fn(self.count), self.wd_fn(self.count)
+        self.extend_schedule()
+        row = self._table.index_select(0, self._counter.clamp(max=self._table.shape[0] - 1).view(1))[0]
         if self.shards:
             params = [self.shards[i].view(p) if i in self.shards else p for i, p in enumerate(params)]
             grads = [self.shards[i].view(g) if i in self.shards else g for i, g in enumerate(grads)]
-        upd = self._update(params, grads, lr, wd)
-        torch._foreach_mul_(upd, [-(lr * s) for s in self.scales])
+        upd = self._update(params, grads, row)
+        for j, group in enumerate(self.scale_groups):
+            torch._foreach_mul_([upd[i] for i in group], row[LR_SCALED + j])
         torch._foreach_add_(params, upd)
+        self._counter.add_(1)
         self.count += 1
         return norm
 
@@ -190,15 +278,14 @@ class FusedAdamW(ScheduledOptimizer):
 
     BUFFERS = ("exp_avg", "exp_avg_sq")
 
-    def _update(self, params, grads, lr: float, wd: float):
+    def _update(self, params, grads, row: torch.Tensor):
         cfg = self.cfg
         l2 = cfg.opt.lower() == "adam"
         if l2:
-            grads = self._add_l2(grads, params, wd)
+            grads = self._add_wd(grads, params, row[WD])
         ms, vs = self._buffers("exp_avg"), self._buffers("exp_avg_sq")
         b1, b2 = cfg.beta1, cfg.beta2
-        c = self.count + 1
-        bc1, bc2 = 1 - b1 ** c, 1 - b2 ** c
+        bc1, bc2 = row[BC1], row[BC2]
         torch._foreach_mul_(ms, b1)
         torch._foreach_add_(ms, grads, alpha=1 - b1)
         torch._foreach_mul_(vs, b2)
@@ -209,9 +296,7 @@ class FusedAdamW(ScheduledOptimizer):
         upd = torch._foreach_div(ms, bc1)
         torch._foreach_div_(upd, denom)
         if not l2:
-            dec = [i for i, d in enumerate(self.decay) if d]
-            if dec and wd != 0.0:
-                torch._foreach_add_([upd[i] for i in dec], [params[i] for i in dec], alpha=wd)
+            self._add_wd(upd, params, row[WD], inplace=True)
         return upd
 
 
@@ -221,8 +306,8 @@ class FusedSGD(ScheduledOptimizer):
 
     BUFFERS = ("momentum_buffer",)
 
-    def _update(self, params, grads, lr: float, wd: float):
-        grads = self._add_l2(grads, params, wd)
+    def _update(self, params, grads, row: torch.Tensor):
+        grads = self._add_wd(grads, params, row[WD])
         trace = self._buffers("momentum_buffer")
         mu = self.cfg.momentum
         torch._foreach_mul_(trace, mu)

@@ -34,11 +34,22 @@ with it the placements of `core/dist.py::shard_train_state` (ZeRO-1,
 FSDP, TP). The slot step also takes a pipeline layout (`pp_mesh`,
 `core/pipeline.py`).
 
+On a CUDA device, with no layout and no placed state, each of the four
+steps replays its whole step as one CUDA graph (`train/graph.py`): the
+first such call captures it, with the caller's generator, and every later
+call with the same batch shapes and dtypes, draws, generator, state and
+update_freq copies its batch into the graph's inputs and replays it, at
+most two steps ahead of the card. Any other call, a call on the CPU,
+under a layout or a placement, and every call after a capture that
+failed (a step that waits for the host), runs eager as described above.
+The step function's `graph` attribute is its `StepGraph`.
+
 The steps' phases and the eval forward are spans of `utils/profiling.py`
 (`train.step`, `train.fame`, `train.teacher`, `train.student`,
 `train.loss`, `train.backward`, `train.optimizer`, `eval.forward`), and
 `to_device` stages host arrays under `h2d.stage` and counts their bytes;
-they record only under a profiler.
+they record only under a profiler. A replay enters `train.step` and
+`train.graph_wait` alone.
 """
 
 from __future__ import annotations
@@ -74,6 +85,7 @@ from devias_tpu_torch.losses.slot_loss import (
     hvu_slot_loss,
     multi_task_loss,
 )
+from devias_tpu_torch.train.graph import StepGraph, graph_safe
 from devias_tpu_torch.train.state import TrainState
 from devias_tpu_torch.utils.profiling import count, span
 
@@ -314,18 +326,19 @@ def make_slot_train_step(model: nn.Module, teacher: nn.Module, optimizer: torch.
     own_generator = _layout_generator(mesh, dev)
     U = step_cfg.update_freq
 
+    graph = StepGraph()
+
+    def micro(x, sl, gen, d):
+        return slot_loss(model, teacher, x["videos"][sl], x["labels"][sl], loss_cfg, step_cfg, gen, d, sp_mesh,
+                         dp_mesh, segformer_apply, pp_mesh)
+
     def step(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None,
              draws: Optional[Union[Dict, Sequence]] = None, host_metrics: bool = False):
-        videos = to_device(batch["videos"], dev)
-        labels = to_device(batch["labels"], dev).long()
+        inputs = {"videos": to_device(batch["videos"], dev), "labels": to_device(batch["labels"], dev).long()}
+        return _run_step(state, optimizer, model, inputs, U, micro, own_generator if generator is None
+                         else generator, draws, mesh, METRIC_NAMES, lr_fn, host_metrics, graph)
 
-        def micro(sl, gen, d):
-            return slot_loss(model, teacher, videos[sl], labels[sl], loss_cfg, step_cfg, gen, d, sp_mesh, dp_mesh,
-                             segformer_apply, pp_mesh)
-
-        return _run_step(state, optimizer, model, videos.shape[0], U, micro, own_generator if generator is None
-                         else generator, draws, mesh, METRIC_NAMES, lr_fn, host_metrics)
-
+    step.graph = graph
     return step
 
 
@@ -339,39 +352,48 @@ def _micro_draws(draws, U: int):
     return draws
 
 
-def _run_step(state: TrainState, optimizer: torch.optim.Optimizer, model: nn.Module, batch: int, U: int,
-              micro: Callable, generator: torch.Generator, draws, mesh: Optional[SPMesh],
-              metric_names: Sequence[str], lr_fn: Optional[Callable[[int], float]], host_metrics: bool):
-    """The part every train step shares: `micro(slice, generator, draws)`
-    -> (loss, metrics) for each of the U micro-batches of `batch` clips,
-    its backward, the f32 gradients and metrics summed; under a layout
-    the gradients reduced and the metrics averaged over the data group;
-    both divided by U; then `lr` (with `lr_fn`, at the step before the
-    update), one optimizer step (`grad_norm`, before clipping), the EMA
-    and the step count. A placed state (`core/dist.py::Placement`) has its
-    full parameters gathered before the first micro-batch (FSDP), and after
-    the update the updated slices all-gathered (ZeRO-1) or the full
-    parameters freed (FSDP), before the EMA."""
+def _run_step(state: TrainState, optimizer: torch.optim.Optimizer, model: nn.Module, inputs: Dict[str, torch.Tensor],
+              U: int, micro: Callable, generator: torch.Generator, draws, mesh: Optional[SPMesh],
+              metric_names: Sequence[str], lr_fn: Optional[Callable[[int], float]], host_metrics: bool,
+              graph: Optional[StepGraph]):
+    """The part every train step shares: `micro(inputs, slice, generator,
+    draws)` -> (loss, metrics) for each of the U micro-batches of the
+    `inputs` (device tensors of one batch), its backward, the f32
+    gradients and metrics summed; under a layout the gradients reduced and
+    the metrics averaged over the data group; both divided by U; then `lr`
+    (with `lr_fn`, at the step before the update), one optimizer step
+    (`grad_norm`, before clipping), the EMA and the step count. A placed
+    state (`core/dist.py::Placement`) has its full parameters gathered
+    before the first micro-batch (FSDP), and after the update the updated
+    slices all-gathered (ZeRO-1) or the full parameters freed (FSDP),
+    before the EMA. With `graph` the step is a replay of its capture where
+    the call allows one (`train/graph.py`), else it runs eager."""
     if state.optimizer is not optimizer:
         raise ValueError("the state holds another optimizer than the step was made with")
+    videos = next(iter(inputs.values()))
+    batch = videos.shape[0]
     if batch % U:
         raise ValueError(f"batch {batch} is not a multiple of update_freq {U}")
     draws = _micro_draws(draws, U)
     mb = batch // U
-    with span("train.step"):
-        placement = state.placement
-        if placement is not None:
-            placement.gather_params()
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
+
+    def forward_backward(x, d, gen):
         sums = None
         for u in range(U):
-            total, m = micro(slice(u * mb, (u + 1) * mb), generator, None if draws is None else draws[u])
+            total, m = micro(x, slice(u * mb, (u + 1) * mb), gen, None if d is None else d[u])
             with span("train.backward"):
                 total.backward()
                 # the loss holds the autograd graph: free it inside the span
                 del total
             sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
+        return sums
+
+    def body(x, d, gen):
+        placement = state.placement
+        if placement is not None:
+            placement.gather_params()
+        optimizer.zero_grad(set_to_none=True)
+        sums = forward_backward(x, d, gen)
         if mesh is not None:
             reduce_grads(model, mesh)
             sums = mean_over_data(sums, mesh)
@@ -380,16 +402,25 @@ def _run_step(state: TrainState, optimizer: torch.optim.Optimizer, model: nn.Mod
                 if p.grad is not None:
                     p.grad.div_(U)
             sums = {k: v / U for k, v in sums.items()}
-        metrics = {k: sums[k] for k in metric_names}
-        if lr_fn is not None:
-            metrics["lr"] = torch.tensor(lr_fn(state.step), dtype=torch.float32)
         with span("train.optimizer"):
-            metrics["grad_norm"] = optimizer.step()
+            grad_norm = optimizer.step()
             optimizer.zero_grad(set_to_none=True)
             if placement is not None:
                 placement.after_update()
             state.update_ema()
             state.step += 1
+        return {k: sums[k] for k in metric_names}, grad_norm
+
+    with span("train.step"):
+        lr_step = state.step
+        model.train()
+        out = None
+        if graph is not None and graph_safe(videos.device, mesh, state.placement):
+            out = graph.run(state, optimizer, inputs, draws, generator, U, forward_backward, body)
+        metrics, grad_norm = body(inputs, draws, generator) if out is None else out
+        if lr_fn is not None:
+            metrics["lr"] = torch.tensor(lr_fn(lr_step), dtype=torch.float32)
+        metrics["grad_norm"] = grad_norm
         if host_metrics:
             return {k: float(v) for k, v in metrics.items()}
         return metrics
@@ -472,19 +503,20 @@ def make_hvu_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss
     own_generator = _layout_generator(dp_mesh, dev)
     U = step_cfg.update_freq
 
+    graph = StepGraph()
+
+    def micro(x, sl, gen, d):
+        return hvu_loss(model, x["videos"][sl], x["action"][sl], x["scene"][sl], loss_cfg, step_cfg, gen, d, dp_mesh)
+
     def step(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None,
              draws: Optional[Union[Dict, Sequence]] = None, host_metrics: bool = False):
-        videos = to_device(batch["videos"], dev)
-        action = to_device(batch["labels"] if "labels" in batch else batch["action_labels"], dev).long()
-        scene = to_device(batch["scene_labels"], dev).long()
+        inputs = {"videos": to_device(batch["videos"], dev),
+                  "action": to_device(batch["labels"] if "labels" in batch else batch["action_labels"], dev).long(),
+                  "scene": to_device(batch["scene_labels"], dev).long()}
+        return _run_step(state, optimizer, model, inputs, U, micro, own_generator if generator is None else generator,
+                         draws, dp_mesh, METRIC_NAMES, lr_fn, host_metrics, graph)
 
-        def micro(sl, gen, d):
-            return hvu_loss(model, videos[sl], action[sl], scene[sl], loss_cfg, step_cfg, gen, d, dp_mesh)
-
-        return _run_step(state, optimizer, model, videos.shape[0], U, micro,
-                         own_generator if generator is None else generator, draws, dp_mesh, METRIC_NAMES, lr_fn,
-                         host_metrics)
-
+    step.graph = graph
     return step
 
 
@@ -534,19 +566,20 @@ def make_classification_train_step(model: nn.Module, optimizer: torch.optim.Opti
     require_on(model, dev)
     own_generator = _layout_generator(dp_mesh, dev)
 
+    graph = StepGraph()
+
+    def micro(x, sl, gen, d):
+        return classification_loss(model, x["videos"][sl], x["labels"][sl], criterion, logits_key, mixup_cfg, gen, d,
+                                   dp_mesh)
+
     def step(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None,
              draws: Optional[Union[Dict, Sequence]] = None, host_metrics: bool = False):
-        videos = to_device(batch["videos"], dev)
-        labels = to_device(batch["labels"], dev).long()
-
-        def micro(sl, gen, d):
-            return classification_loss(model, videos[sl], labels[sl], criterion, logits_key, mixup_cfg, gen, d,
-                                       dp_mesh)
-
-        return _run_step(state, optimizer, model, videos.shape[0], update_freq, micro,
+        inputs = {"videos": to_device(batch["videos"], dev), "labels": to_device(batch["labels"], dev).long()}
+        return _run_step(state, optimizer, model, inputs, update_freq, micro,
                          own_generator if generator is None else generator, draws, dp_mesh,
-                         CLASSIFICATION_METRIC_NAMES, lr_fn, host_metrics)
+                         CLASSIFICATION_METRIC_NAMES, lr_fn, host_metrics, graph)
 
+    step.graph = graph
     return step
 
 
@@ -602,19 +635,20 @@ def make_multi_task_train_step(model: nn.Module, teacher: nn.Module, optimizer: 
     teacher.eval().requires_grad_(False)
     own_generator = _layout_generator(dp_mesh, dev)
 
+    graph = StepGraph()
+
+    def micro(x, sl, gen, _):
+        return multi_task_loss_of(model, teacher, x["videos"][sl], x["labels"][sl], num_action_classes,
+                                  logit_criterion, logit_criterion_weight, unified_head, action_criterion, gen, dp_mesh)
+
     def step(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None,
              host_metrics: bool = False):
-        videos = to_device(batch["videos"], dev)
-        labels = to_device(batch["labels"], dev).long()
-
-        def micro(sl, gen, _):
-            return multi_task_loss_of(model, teacher, videos[sl], labels[sl], num_action_classes, logit_criterion,
-                                      logit_criterion_weight, unified_head, action_criterion, gen, dp_mesh)
-
-        return _run_step(state, optimizer, model, videos.shape[0], update_freq, micro,
+        inputs = {"videos": to_device(batch["videos"], dev), "labels": to_device(batch["labels"], dev).long()}
+        return _run_step(state, optimizer, model, inputs, update_freq, micro,
                          own_generator if generator is None else generator, None, dp_mesh,
-                         MULTI_TASK_METRIC_NAMES, lr_fn, host_metrics)
+                         MULTI_TASK_METRIC_NAMES, lr_fn, host_metrics, graph)
 
+    step.graph = graph
     return step
 
 

@@ -31,10 +31,15 @@ The program's spans and counter:
 | `train.loss` | `slot_loss`, `hvu_loss` | the slot loss with its matching |
 | `train.backward` | `_run_step` | autograd's enqueue of the backward |
 | `train.optimizer` | `_run_step` | the optimizer step, `zero_grad`, the EMA, the step count |
+| `train.graph_wait` | `train/graph.py::StepGraph.replay` | the wait for the replay two back to finish, before a replay |
 | `eval.forward` | `train/step.py::make_eval_step` | one eval forward, its staging included |
 | `h2d.stage` | `train/step.py::to_device` | pinning a host array and enqueueing its copy to the card |
 | `eval.fetch` | `eval/protocols.py::_finish_fetch` | the wait for the card's results and their numpy conversion |
 | counter `h2d_bytes` | `train/step.py::to_device` | bytes of host arrays sent to the card |
+| counter `train_graph_replays` | `train/graph.py::StepGraph.replay` | replays of a train step captured as a CUDA graph |
+
+A replayed train step enters `train.step` and `train.graph_wait` only: the
+host work of its phases is what the replay no longer does.
 """
 
 from __future__ import annotations
@@ -52,9 +57,14 @@ from devias_tpu_torch.device import DeviceLike, resolve_device
 TRACE_FILE = "trace.json"
 # the program's spans, as the module docstring's table lists them
 SPANS = ("train.step", "train.fame", "train.teacher", "train.student", "nn.agg", "train.loss", "train.backward",
-         "train.optimizer", "eval.forward", "h2d.stage", "eval.fetch")
+         "train.optimizer", "train.graph_wait", "eval.forward", "h2d.stage", "eval.fetch")
 
 _profiler_on = torch._C._autograd._profiler_enabled
+
+
+def recording() -> bool:
+    """Whether a `torch.profiler` records now."""
+    return _profiler_on()
 
 
 @contextlib.contextmanager

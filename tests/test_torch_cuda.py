@@ -580,3 +580,219 @@ def test_geometry_attention_through_k1_matches_its_plain_version(card, qk_scale)
     rms = want.square().mean().sqrt().item()
     assert (got - want).abs().max().item() <= PLAIN_TOL * rms
     assert (probs.float().sum(-1) - 1).abs().max().item() <= 1e-2
+
+
+# the train step captured as a CUDA graph (`train/graph.py`): a slot ViT
+# with K1's head dim, two blocks of two heads on 4 x 64 x 64 clips (32
+# tokens), drop-path on, so the generator's draws enter the step
+GRAPH_WIDTH = dict(depth=2, embed_dim=128, num_heads=2, num_frames=4, fused_attention=True, dtype=torch.bfloat16)
+GRAPH_SLOT = dict(num_classes=5, num_scene_classes=4, num_latents=2, agg_depth=2, drop_path_rate=0.1, img_size=64,
+                  **GRAPH_WIDTH)
+GRAPH_B = 4
+
+
+def _graph_data(card, steps, B=GRAPH_B):
+    g = torch.Generator(device=card).manual_seed(11)
+    return [({"videos": torch.randn((B, 4, 64, 64, 3), generator=g, device=card),
+              "labels": torch.randint(0, 5, (B,), generator=g, device=card),
+              "scene_labels": torch.randint(0, 4, (B,), generator=g, device=card)},
+             {"perm": torch.rand(B, generator=g, device=card).argsort(),
+              "keep": torch.rand(B, generator=g, device=card) < 0.5}) for _ in range(steps)]
+
+
+def _graph_step(card, hvu):
+    from devias_tpu_torch.losses import SlotLossConfig
+    from devias_tpu_torch.nn import create_model
+    from devias_tpu_torch.train import (OptimConfig, TrainState, TrainStepConfig, make_hvu_train_step,
+                                        make_optimizer, make_slot_train_step)
+
+    model = create_model("slot_vit_base_patch16_224", device=card, seed=0, **GRAPH_SLOT)
+    opt, lr_fn = make_optimizer(model, OptimConfig(lr=1e-3, total_steps=10, warmup_steps=2, layer_decay=0.75,
+                                                   agg_block_scale=0.1, num_layers=2), device=card)
+    state = TrainState.create(model, opt, use_ema=True, device=card)
+    loss_cfg = SlotLossConfig(num_action_classes=5, num_scene_classes=4)
+    if hvu:
+        step = make_hvu_train_step(model, opt, loss_cfg, TrainStepConfig(), lr_fn, device=card)
+    else:
+        teacher = create_model("vit_base_patch16_224", device=card, seed=1, num_classes=4, use_mean_pooling=False,
+                               img_size=64, **GRAPH_WIDTH)
+        step = make_slot_train_step(model, teacher, opt, loss_cfg, TrainStepConfig(), lr_fn, device=card)
+    return model, opt, state, step
+
+
+def _three_steps(card, hvu):
+    """Three steps from the seed's weights, draws and generator; what they
+    leave behind. The metrics are held as returned until the end."""
+    from devias_tpu_torch.kernels import attention
+
+    model, opt, state, step = _graph_step(card, hvu)
+    gen = torch.Generator(device=card).manual_seed(5)
+    attention.reset_launch_counts()
+    held = [step(state, batch, generator=gen, draws=draws) for batch, draws in _graph_data(card, 3)]
+    torch.cuda.synchronize()
+    params = list(model.parameters())
+    return {"metrics": [{k: float(v) for k, v in m.items()} for m in held],
+            "exp_avg": [opt.state[p]["exp_avg"].clone() for p in params],
+            "params": [p.detach().clone() for p in params],
+            "ema": [e.clone() for e in state.ema_params.values()],
+            "gen": gen.get_state(), "launches": attention.launch_counts(), "step": step,
+            "counts": (state.step, opt.count, int(opt._counter))}
+
+
+def _gap(a, b):
+    """The largest difference between two runs' metrics and tensors."""
+    gap = max(abs(x[k] - y[k]) for x, y in zip(a["metrics"], b["metrics"]) for k in x)
+    for key in ("exp_avg", "params", "ema"):
+        gap = max(gap, max(float((x - y).abs().max()) for x, y in zip(a[key], b[key])))
+    return gap
+
+
+@pytest.mark.parametrize("hvu", [False, True], ids=["slot", "hvu"])
+def test_replayed_steps_equal_eager_steps(card, monkeypatch, capsys, hvu):
+    """Three steps replayed from the captured graph against three eager
+    steps (capture forbidden), from the same weights, clips, draws and
+    generator state: the loss terms, Adam's first moments, the parameters
+    and the EMA as close as two eager runs are to each other (bitwise
+    where those are), the generator's state after them equal, and K1's
+    launch counts equal. The first call captured and replayed: all three
+    steps are replays."""
+    import devias_tpu_torch.train.step as step_module
+
+    with monkeypatch.context() as m:
+        m.setattr(step_module, "graph_safe", lambda *a: False)
+        eager = _three_steps(card, hvu)
+        again = _three_steps(card, hvu)
+    graphed = _three_steps(card, hvu)
+    assert eager["step"].graph.replays == 0 and eager["step"].graph.graph is None
+    sg = graphed["step"].graph
+    assert not sg.failed and sg.replays == 3
+    assert graphed["counts"] == eager["counts"] == (3, 3, 3)
+    assert torch.equal(graphed["gen"], eager["gen"])
+    assert graphed["launches"] == eager["launches"]
+    assert graphed["launches"]["K1-fwd-stats"] == graphed["launches"]["K1-bwd"] == 3 * 2
+    assert graphed["launches"]["K1-fwd"] == (0 if hvu else 3 * 2)
+    with capsys.disabled():
+        print(f"GRAPH-GAP {'hvu' if hvu else 'slot'}: replayed against eager {_gap(graphed, eager)}, "
+              f"eager against eager {_gap(again, eager)}")
+    assert _gap(graphed, eager) <= _gap(again, eager), (_gap(graphed, eager), _gap(again, eager))
+    assert all(np.isfinite(v) for m in graphed["metrics"] for v in m.values())
+
+
+def test_a_changed_batch_runs_eager_and_run_ahead_stays_two(card):
+    """After the capture, a batch of another size runs eager and the
+    captured batch replays again; replay n starts only once replay n - 2
+    has finished, and no more than two are in flight. A loaded optimizer
+    state (new tensors) drops the graph, and the next call captures one
+    that updates the loaded tensors."""
+    import copy
+
+    model, opt, state, step = _graph_step(card, hvu=False)
+    gen = torch.Generator(device=card).manual_seed(5)
+    sg = step.graph
+    events = []
+    record = sg._recorded_event
+
+    def recorded():
+        events.append(record())
+        return events[-1]
+
+    sg._recorded_event = recorded
+    data = _graph_data(card, 2)
+    for n in range(1, 7):
+        batch, draws = data[n % 2]
+        step(state, batch, generator=gen, draws=draws)
+        assert len(sg.inflight) <= 2
+        if n >= 3:
+            assert events[n - 3].query()
+    assert sg.replays == 6
+    (small, small_draws), = _graph_data(card, 1, B=2)
+    m = step(state, small, generator=gen, draws=small_draws)
+    assert sg.replays == 6 and np.isfinite(float(m["loss"]))
+    batch, draws = data[0]
+    step(state, batch, generator=gen, draws=draws)
+    torch.cuda.synchronize()
+    assert sg.replays == 7 and state.step == opt.count == int(opt._counter) == 8
+    first = sg.graph
+    opt.load_state_dict(copy.deepcopy(opt.state_dict()))
+    loaded = opt.state[next(model.parameters())]["exp_avg"]
+    before = loaded.clone()
+    step(state, batch, generator=gen, draws=draws)
+    torch.cuda.synchronize()
+    assert sg.graph is not None and sg.graph is not first and sg.replays == 8
+    assert not torch.equal(loaded, before) and state.step == opt.count == int(opt._counter) == 9
+
+
+def test_which_other_steps_capture(card, capsys):
+    """The classification step with mixup and the multi-task step on the
+    card: two steps each, finite; whether each captured is printed
+    (`GRAPH-CAPTURE`), as the step decides it for itself."""
+    from devias_tpu_torch.aug.mixup import MixupConfig
+    from devias_tpu_torch.losses.slot_loss import soft_target_cross_entropy
+    from devias_tpu_torch.nn import create_model
+    from devias_tpu_torch.train import (OptimConfig, TrainState, make_classification_train_step,
+                                        make_multi_task_train_step, make_optimizer)
+
+    data = _graph_data(card, 2)
+    width = dict(GRAPH_WIDTH, img_size=64)
+    seen = {}
+    model = create_model("vit_base_patch16_224", device=card, seed=2, num_classes=5, **width)
+    opt, lr_fn = make_optimizer(model, OptimConfig(lr=1e-3, total_steps=10, num_layers=2), device=card)
+    state = TrainState.create(model, opt, device=card)
+    mix = MixupConfig(mixup_alpha=0.8, cutmix_alpha=1.0, label_smoothing=0.1, num_classes=5)
+    step = make_classification_train_step(model, opt, soft_target_cross_entropy, 1, lr_fn, mixup_cfg=mix,
+                                          device=card)
+    gen = torch.Generator(device=card).manual_seed(3)
+    losses = [float(step(state, {"videos": b["videos"], "labels": b["labels"]}, generator=gen)["loss"])
+              for b, _ in data]
+    seen["classification"] = (step.graph.replays, step.graph.failed, losses)
+    model = create_model("disentangle_vit_base_patch16_224", device=card, seed=2, num_classes=5,
+                         num_scene_classes=4, **width)
+    teacher = create_model("vit_base_patch16_224", device=card, seed=1, num_classes=4, use_mean_pooling=False,
+                           **width)
+    opt, lr_fn = make_optimizer(model, OptimConfig(lr=1e-3, total_steps=10, num_layers=2), device=card)
+    state = TrainState.create(model, opt, device=card)
+    step = make_multi_task_train_step(model, teacher, opt, 5, lr_fn=lr_fn, device=card)
+    losses = [float(step(state, {"videos": b["videos"], "labels": b["labels"]}, generator=gen)["loss"])
+              for b, _ in data]
+    seen["multi_task"] = (step.graph.replays, step.graph.failed, losses)
+    with capsys.disabled():
+        for name, (replays, failed, losses) in seen.items():
+            print(f"GRAPH-CAPTURE {name}: replays {replays}, capture failed {failed}, losses {losses}")
+    for replays, failed, losses in seen.values():
+        assert all(np.isfinite(v) for v in losses)
+        assert replays == (0 if failed else 2)
+
+
+def test_a_step_whose_capture_fails_runs_eager(card):
+    """An update that waits for the host (a gradient read back, as a
+    recording hook does) cannot be captured: the capture fails with a
+    warning, the call and every later one run eager, and the steps equal
+    those of a step that never tried."""
+    import devias_tpu_torch.train.step as step_module
+
+    def run(hooked):
+        model, opt, state, step = _graph_step(card, hvu=True)
+        update, seen = opt.step, []
+
+        def recording_update(*args, **kw):
+            if hooked:
+                seen.append(float(next(model.parameters()).grad.float().norm().cpu()))
+            return update(*args, **kw)
+
+        opt.step = recording_update
+        gen = torch.Generator(device=card).manual_seed(5)
+        losses = [float(step(state, batch, generator=gen, draws=draws)["loss"])
+                  for batch, draws in _graph_data(card, 3)]
+        return losses, [p.detach().clone() for p in model.parameters()], step.graph, seen
+
+    with pytest.warns(UserWarning, match="runs eager"):
+        losses, params, sg, seen = run(True)
+    assert sg.failed and sg.replays == 0 and sg.graph is None and len(seen) == 3
+    saved = step_module.graph_safe
+    step_module.graph_safe = lambda *a: False
+    try:
+        want_losses, want_params, _, _ = run(False)
+    finally:
+        step_module.graph_safe = saved
+    assert losses == want_losses
+    assert all(torch.equal(a, b) for a, b in zip(params, want_params))
