@@ -50,10 +50,9 @@ def _train_reading(entries, seed, name, got, ref):
           "worst": worst})
 
 
-def train_readings(cell, seed: int, device, controls: bool) -> None:
+def train_readings(entry, seed: int, controls: bool) -> None:
     from harness import entries
 
-    entry = entries.ENTRIES[cell.traffic["entry"]](cell.config, cell.traffic, seed, device)
     entry.setup()
     entry.release()
     with entries.reference_precision():
@@ -64,10 +63,9 @@ def train_readings(cell, seed: int, device, controls: bool) -> None:
             _train_reading(entries, seed, "fault_half_batch", entry.reference_readings(half=True), ref)
 
 
-def eval_readings(cell, seed: int, device, controls: bool, seconds: float) -> None:
+def eval_readings(entry, cell, seed: int, controls: bool, seconds: float) -> None:
     from harness import entries
 
-    entry = entries.FinalTestEntry(cell.config, cell.traffic, seed, device)
     try:
         entry.setup()
         entry.window(seconds)
@@ -108,10 +106,11 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     for k, seed in enumerate(args.seeds):
         t0 = time.perf_counter()
-        if cell.traffic["entry"] == "final_test":
-            eval_readings(cell, seed, device, k < args.controls, args.seconds)
+        entry = spec.entry(cell.traffic["entry"]).make(cell.config, cell.traffic, seed, device)
+        if entry.kind == "eval":
+            eval_readings(entry, cell, seed, k < args.controls, args.seconds)
         else:
-            train_readings(cell, seed, device, k < args.controls)
+            train_readings(entry, seed, k < args.controls)
         print(f"control.py: seed {seed} took {time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
     return 0
 

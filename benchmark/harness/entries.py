@@ -1,8 +1,11 @@
-"""The entries a traffic mix can drive: the port's slot train step, its HVU
-train step and its `final_test` protocol. Each builds the program from a
+"""The kinds of step a traffic mix can drive, which the files of
+`entries/` build by name: a train step of the port (`TrainEntry`) and its
+eval protocol (`FinalTestEntry`). Each builds the program from a
 configuration and a seed, warms it up, runs a measured window, profiles a
 few more calls, and judges what the timed path produced against the plain
-reference once the program is gone.
+reference once the program is gone. Each model of the configuration is
+built, and its reference, tokens and operations found, by its name
+through `models/<name>.py`.
 
 The program is `devias_tpu_torch`; the benchmark hands it weights, clips,
 labels and draws it makes itself from the seed, and reads back only what
@@ -25,8 +28,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from harness import roofline
+from harness import roofline, spec
 from harness.profile import profile_calls
+from harness.spans import program_spans
 from harness.weights import DROP_STREAM, generator, load_into, make_pool, make_weights, shapes_of
 from reference import model as ref_model
 from reference import train as ref_train
@@ -36,9 +40,15 @@ LOSS_KEYS = ("loss", "action_loss", "scene_loss", "cosine_loss", "mask_predictio
 CHECKED_STEPS = 3
 # rows of a batch the reference runs at once
 REF_ROWS = 4
+# steps a traced train run makes before it reads the program's spans in the
+# steady state: more than the replays the program keeps in flight (two,
+# `train/graph.py`), so that each later step waits as the window's steps do
+STEADY_LEAD = 4
 
 
-def _model_kwargs(m: dict) -> dict:
+def program_kwargs(m: dict) -> dict:
+    """A model entry of the configuration as the port's constructor takes
+    it: every key but `name`, the compute type as a torch dtype."""
     kw = {k: v for k, v in m.items() if k != "name"}
     kw["dtype"] = getattr(torch, m["dtype"])
     return kw
@@ -46,18 +56,14 @@ def _model_kwargs(m: dict) -> dict:
 
 def build_program(cfg: dict, device, weights):
     """The port's student (and teacher, where the configuration has one),
-    made on `device` and given `weights`, in eval mode."""
-    from devias_tpu_torch.nn import PlainViT, SlotViT
-
-    classes = {"slot_vit_base_patch16_224": SlotViT, "vit_base_patch16_224": PlainViT}
+    made on `device` by its model file and given `weights`, in eval mode."""
     out = []
     for key in ("model", "teacher"):
         m = cfg.get(key)
         if not m:
             out.append(None)
             continue
-        with torch.device(device):
-            net = classes[m["name"]](**_model_kwargs(m))
+        net = spec.model(m["name"]).program(m, device)
         load_into(net, weights[key])
         out.append(net.eval())
     return out
@@ -66,7 +72,7 @@ def build_program(cfg: dict, device, weights):
 def model_shapes(cfg: dict) -> Dict[str, Dict[str, tuple]]:
     """The reference's parameter names and shapes of every model of the
     configuration: what the weights are drawn for."""
-    return {key: shapes_of(ref_model.build(cfg[key]).named_parameters())
+    return {key: shapes_of(spec.model(cfg[key]["name"]).reference(cfg[key]).named_parameters())
             for key in ("model", "teacher") if cfg.get(key)}
 
 
@@ -89,43 +95,42 @@ def moved_leaves(ref: dict) -> List[str]:
     return [k for k, v in ref["grad_norms"].items() if v >= 1e-3 * gmed]
 
 
-def resolve_near_ties(prog: dict, ref: dict, leaves: List[str], passes: int = 4) -> dict:
+def resolve_near_ties(prog: dict, ref: dict, leaves: List[str]) -> dict:
     """The reference's first step with its near-ties resolved nearest to
-    the program's gradients: a local search over which near-tie samples
-    take their other slot assignment, toggling one at a time, nearest
-    first, where that lowers the sum over leaves of the squared
-    `leaf_gaps`, until a pass changes nothing. Returns {"terms",
+    the program's gradients: of every subset of the near-tie samples
+    taking their other slot assignment, the one with the least sum over
+    leaves of the squared `leaf_gaps`. The search is whole, not local (a
+    batch whose teacher argmax is near a tie on every sample has 2**12
+    subsets, and toggling one at a time stops short of the program's): each
+    subset's leaf norms come from the leaf's Gram matrix of the first
+    step's gradient and the near-ties' changes. Returns {"terms",
     "grad_norms", "swapped"}."""
     first = ref["first_step"]
     near = first["near"]
-    current = dict(first["grads"])
-
-    def toggled(j, sign):
-        return {k: g if near[j]["grads"][k] is None else g + sign * near[j]["grads"][k] for k, g in current.items()}
-
-    def cost(grads):
-        norms = {k: float(g.norm()) for k, g in grads.items()}
-        return sum(v * v for v in leaf_gaps(prog["grad_norms"], norms, leaves).values()), norms
-
-    chosen = [False] * len(near)
-    best, norms = cost(current)
-    for _ in range(passes):
-        changed = False
-        for j in range(len(near)):
-            trial = toggled(j, -1.0 if chosen[j] else 1.0)
-            trial_cost, trial_norms = cost(trial)
-            if trial_cost < best:
-                current, best, norms, changed = trial, trial_cost, trial_norms, True
-                chosen[j] = not chosen[j]
-        if not changed:
-            break
+    n = len(near)
+    subsets = (torch.arange(2 ** n)[:, None] >> torch.arange(n)) & 1
+    X = torch.cat([torch.ones(2 ** n, 1, dtype=torch.long), subsets], 1).double()
+    sq = []
+    for k in leaves:
+        g = first["grads"][k]
+        V = torch.stack([g.flatten()] + [(t["grads"][k] if t["grads"][k] is not None else torch.zeros_like(g)).flatten()
+                                         for t in near]).double()
+        G = (V @ V.T).cpu()
+        sq.append(((X @ G) * X).sum(1))
+    norms = torch.stack(sq, 1).clamp_min(0).sqrt()
+    median = torch.quantile(norms, 0.5, dim=1, keepdim=True)
+    p = torch.tensor([prog["grad_norms"][k] for k in leaves], dtype=torch.float64)
+    cost = ((p - norms).abs() / torch.maximum(norms, median)).pow(2).sum(1)
+    chosen = [t for t, b in zip(near, subsets[int(cost.argmin())].tolist()) if b]
+    grads = dict(first["grads"])
     terms = dict(first["terms"])
-    for tie, take in zip(near, chosen):
-        if take:
-            for k, v in tie["terms"].items():
-                terms[k] += v
+    for tie in chosen:
+        grads = {k: g if tie["grads"][k] is None else g + tie["grads"][k] for k, g in grads.items()}
+        for k, v in tie["terms"].items():
+            terms[k] += v
     terms["loss"] = sum(v for k, v in terms.items() if k != "loss" and k in LOSS_KEYS)
-    return {"terms": terms, "grad_norms": norms, "swapped": [t["sample"] for t, c in zip(near, chosen) if c]}
+    return {"terms": terms, "grad_norms": {k: float(g.norm()) for k, g in grads.items()},
+            "swapped": [t["sample"] for t in chosen]}
 
 
 def train_gaps(prog: dict, ref: dict) -> Dict[str, float]:
@@ -163,6 +168,8 @@ class TrainEntry:
     generator of the seed. Set-up's first CHECKED_STEPS steps are the
     checked ones (pool batches 0, 1, 2: every row different), then the
     traffic's `warm_steps` more."""
+
+    kind = "train"
 
     def __init__(self, cfg: dict, traffic: dict, seed: int, device, hvu: bool):
         from devias_tpu_torch.aug import FAMEConfig
@@ -254,17 +261,45 @@ class TrainEntry:
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0
         steps = len(host_s)
-        return {"kind": "train", "steps": steps, "clips": steps * self.B, "wall_s": wall, "window_start": t0,
+        return {"kind": self.kind, "steps": steps, "clips": steps * self.B, "wall_s": wall, "window_start": t0,
                 "step_ms": step_gaps_ms(events) if cuda else [], "host_ms": [s * 1e3 for s in host_s],
                 "peak_bytes": torch.cuda.max_memory_allocated(self.device) if cuda else 0,
                 "finite": math.isfinite(float(self.metrics["loss"])),
                 "flops_per_clip": roofline.flops_per_clip(self.cfg, train=True), "batch": self.B}
 
     def profile(self, n: int) -> Dict:
+        """`n` steps in the steady state under a host-only profiler (the
+        program's spans there, `steady`), then `n` steps traced from a
+        synchronize (`profile_calls`)."""
         from devias_tpu_torch.kernels import attention
 
-        return profile_calls(self.call, n, n, attention.launch_counts, attention.reset_launch_counts,
+        steady = self.steady_spans(n)
+        prof = profile_calls(self.call, n, n, attention.launch_counts, attention.reset_launch_counts,
                              self.device.type == "cuda")
+        return {**prof, "steady": steady}
+
+    def steady_spans(self, n: int) -> Optional[Dict]:
+        """The program's spans over `n` steps that run as the window's do:
+        under a host-only profiler with no synchronize, the tally after
+        STEADY_LEAD + n steps less the tally after STEADY_LEAD (a
+        synchronize empties the replays in flight, so the first steps after
+        one wait less). One unprofiled step follows, so that the traced
+        steps' first span starts the program's tally anew. None where the
+        program keeps no tally."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU]):
+            for _ in range(STEADY_LEAD):
+                self.call()
+            before = program_spans()
+            for _ in range(n):
+                self.call()
+            after = program_spans()
+        self.call()
+        if after is None:
+            return None
+        return {"units": n, "spans": {k: {f: v[f] - before.get(k, {}).get(f, 0) for f in v}
+                                      for k, v in after.items()}}
 
     def release(self) -> None:
         """Free the program's state: models, optimizer, step."""
@@ -298,6 +333,8 @@ class FinalTestEntry:
     window's deadline; the result file under a temporary directory of
     TMPDIR, removed at the end."""
 
+    kind = "eval"
+
     def __init__(self, cfg: dict, traffic: dict, seed: int, device):
         from devias_tpu_torch.train import make_eval_step
 
@@ -324,7 +361,7 @@ class FinalTestEntry:
 
         self.scene_fn = spans(lambda v: scene_step(v)[:, self.A:])
         self.teacher_fn = spans(teacher_step)
-        self.out_dir = tempfile.mkdtemp(prefix="bench_final_test_")
+        self.out_dir = tempfile.mkdtemp(prefix="bench_eval_rows_")
         self.batches = 0
 
     def loader(self, deadline: float, limit: Optional[int] = None):
@@ -360,7 +397,7 @@ class FinalTestEntry:
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0
         self.window_batches = self.batches
-        return {"kind": "eval", "batches": self.batches, "clips": self.batches * self.B, "wall_s": wall,
+        return {"kind": self.kind, "batches": self.batches, "clips": self.batches * self.B, "wall_s": wall,
                 "window_start": t0,
                 "host_ms": [s * 1e3 for s in self.host_s], "peak_bytes":
                     torch.cuda.max_memory_allocated(self.device) if cuda else 0, "finite": True,
@@ -472,9 +509,3 @@ def reference_precision():
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
-
-ENTRIES = {
-    "slot_train": lambda cfg, traffic, seed, device: TrainEntry(cfg, traffic, seed, device, hvu=False),
-    "hvu_train": lambda cfg, traffic, seed, device: TrainEntry(cfg, traffic, seed, device, hvu=True),
-    "final_test": FinalTestEntry,
-}

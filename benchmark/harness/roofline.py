@@ -1,7 +1,8 @@
 """Operations and bytes of the work the program does, and the chip's peaks
-(frozen copies of `chip_smoke.py::vit_flops_per_clip`, `_bound`,
-`attention_bound` and `attention_bwd_bound`, with the batch and heads as
-arguments).
+(frozen copies of `chip_smoke.py::vit_flops_per_clip`, with the MLP's width
+as an argument, `_bound`, `attention_bound` and `attention_bwd_bound`, with
+the batch and heads as arguments). A model's tokens and operations per
+clip come from its file in `models/`, found by the model entry's name.
 
 Published peaks of one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data
 sheet, dense): 989 TFLOP/s in bf16, 3.35 TB/s of HBM.
@@ -9,15 +10,24 @@ sheet, dense): 989 TFLOP/s in bf16, 3.35 TB/s of HBM.
 
 from __future__ import annotations
 
+from harness import spec
+
 BF16_PEAK = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 
-def vit_flops_per_clip(N: int, C: int = 768, depth: int = 12) -> float:
-    """Forward operations of a ViT's blocks on one clip: qkv, proj and the
-    MLP (24 N C^2) and the two attention products (4 N^2 C) per block. The
-    patch embed, the agg block and the heads add about 1 %."""
-    return depth * (24 * N * C * C + 4 * N * N * C)
+def vit_flops_per_clip(N: int, C: int = 768, depth: int = 12, mlp_ratio: float = 4.0) -> float:
+    """Forward operations of a ViT's blocks on one clip: qkv and proj (8 N
+    C^2), the MLP of width Hm = int(C mlp_ratio) (4 N C Hm) and the two
+    attention products (4 N^2 C) per block; at ratio 4, 24 N C^2 + 4 N^2 C.
+    The patch embed, the agg block and the heads add about 1 %."""
+    hidden = int(C * mlp_ratio)
+    return depth * (8 * N * C * C + 4 * N * C * hidden + 4 * N * N * C)
+
+
+def patch_tokens(m: dict) -> int:
+    """Patch tokens of a model entry's clips: tubelets x patches."""
+    return (m["num_frames"] // m["tubelet_size"]) * (m["img_size"] // m.get("patch_size", 16)) ** 2
 
 
 def bound_ms(flops: float, nbytes: float) -> float:
@@ -39,10 +49,8 @@ def attention_bwd_bound_ms(B: int, H: int, N: int, D: int) -> float:
 
 
 def tokens(m: dict) -> int:
-    """Tokens of a model entry's clips: tubelets x patches, plus the CLS
-    token of the CLS ViT."""
-    n = (m["num_frames"] // m["tubelet_size"]) * (m["img_size"] // m.get("patch_size", 16)) ** 2
-    return n + int(m["name"] == "vit_base_patch16_224" and not m.get("use_mean_pooling", True))
+    """Tokens of a model entry's clips, by its model file."""
+    return spec.model(m["name"]).tokens(m)
 
 
 def flops_per_clip(cfg: dict, train: bool) -> float:
@@ -50,8 +58,8 @@ def flops_per_clip(cfg: dict, train: bool) -> float:
     twice the forward, in training) and the teacher's forward where the
     configuration has one. Recomputation is not counted."""
     m = cfg["model"]
-    total = (3 if train else 1) * vit_flops_per_clip(tokens(m), m["embed_dim"], m["depth"])
+    total = (3 if train else 1) * spec.model(m["name"]).flops_per_clip(m)
     t = cfg.get("teacher")
     if t:
-        total += vit_flops_per_clip(tokens(t), t["embed_dim"], t["depth"])
+        total += spec.model(t["name"]).flops_per_clip(t)
     return total

@@ -4,15 +4,20 @@ A cell (`workloads` entry) names a configuration and a traffic mix. The
 configuration's file is the one `configs` gives it; the traffic mix is
 `traffic/<traffic>.json`; the limits of the cell's correctness check are
 `limits/<cell>.json`; each per-layer metric is read by
-`metrics/<metric>.py`. Adding any of them adds a file and edits none.
+`metrics/<metric>.py`. The traffic mix names its entry, the step a run
+drives, made by `entries/<entry>.py`; each model entry of a configuration
+names its model, built by `models/<name>.py`. Adding any of them adds a
+file and edits none.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib.util
 import json
 import os
+from types import ModuleType
 from typing import Callable, Dict, List
 
 BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -61,14 +66,38 @@ def load_cell(name: str, spec_path: str = None, bench_dir: str = BENCH_DIR) -> C
                 per_layer=per_layer)
 
 
+@functools.lru_cache(maxsize=None)
+def _module(kind: str, name: str, bench_dir: str) -> ModuleType:
+    """The file `<bench_dir>/<kind>/<name>.py`, loaded once."""
+    path = os.path.join(bench_dir, kind, f"{name}.py")
+    if not os.path.isfile(path):
+        raise KeyError(f"no {kind} file {name}.py in {os.path.join(bench_dir, kind)}")
+    mod_spec = importlib.util.spec_from_file_location(f"bench_{kind}_{name.replace('.', '_').replace('-', '_')}", path)
+    mod = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(mod)
+    return mod
+
+
 def reader(metric: str, bench_dir: str = BENCH_DIR) -> Callable:
     """`read(run)` of `metrics/<metric>.py`: the metric's value from a
     run's record, or None where the run holds nothing for it."""
-    path = os.path.join(bench_dir, "metrics", f"{metric}.py")
-    mod_spec = importlib.util.spec_from_file_location(f"bench_metric_{metric.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(mod_spec)
-    mod_spec.loader.exec_module(mod)
-    return mod.read
+    return _module("metrics", metric, bench_dir).read
+
+
+def entry(name: str, bench_dir: str = BENCH_DIR) -> ModuleType:
+    """`entries/<name>.py`, whose `make(cfg, traffic, seed, device)` builds
+    the object a run drives: `setup()`, `window(seconds)`, `profile(n)`,
+    `release()`, `check(limits)`, and where it holds files, `close()`."""
+    return _module("entries", name, bench_dir)
+
+
+def model(name: str, bench_dir: str = BENCH_DIR) -> ModuleType:
+    """`models/<name>.py` of a configuration's model entry (its `name`):
+    `program(m, device)`, the port's module built on `device`;
+    `reference(m)`, the plain float32 module with the port's parameter
+    names; `tokens(m)`, the tokens of one clip; `flops_per_clip(m)`, the
+    forward operations on one clip."""
+    return _module("models", name, bench_dir)
 
 
 def read_per_layer(cell: Cell, run: Dict, bench_dir: str = BENCH_DIR) -> Dict[str, dict]:

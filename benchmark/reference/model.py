@@ -311,17 +311,6 @@ class PlainViT(Backbone):
         return self.head(self.features(x)[:, 0])
 
 
-def build(m: dict) -> nn.Module:
-    """The reference model for a configuration's model or teacher entry."""
-    if m["name"] == "slot_vit_base_patch16_224":
-        return SlotViT(m)
-    if m["name"] == "vit_base_patch16_224":
-        if m.get("use_mean_pooling", True):
-            raise ValueError("the reference teacher is the CLS ViT (use_mean_pooling false)")
-        return PlainViT(m)
-    raise ValueError(f"no plain reference for model {m['name']!r}")
-
-
 def set_quant(model: nn.Module, quant: Optional[str]) -> None:
     for mod in model.modules():
         if hasattr(mod, "quant"):

@@ -20,6 +20,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from harness import spec
 from reference import fame as ref_fame
 from reference import losses as ref_losses
 from reference import model as ref_model
@@ -27,10 +28,11 @@ from reference.optim import AdamW
 
 # near-ties of the first step's discrete choices that bfloat16 rounding can
 # resolve the other way: the matching's cost margin (probabilities, of the
-# order of 1e-3 at these widths) and the teacher's top-two logit gap
+# order of 1e-3 at these widths) and the teacher's top-two logit gap; at
+# most MAX_TIES of them, whose 2**MAX_TIES subsets the check searches whole
 MATCH_TIE = 1e-4
 TEACHER_TIE = 0.05
-MAX_TIES = 32
+MAX_TIES = 12
 
 
 def _load(model: torch.nn.Module, weights: Dict[str, torch.Tensor], requires_grad: bool) -> None:
@@ -44,12 +46,13 @@ def _load(model: torch.nn.Module, weights: Dict[str, torch.Tensor], requires_gra
 
 
 def build(cfg: dict, weights: Dict[str, Dict[str, torch.Tensor]], device, quant: Optional[str] = None):
-    """(student, teacher or None) in float32 on `device` with `weights`."""
-    student = ref_model.build(cfg["model"]).to(device)
+    """(student, teacher or None) in float32 on `device` with `weights`,
+    each the reference of its model file (`models/<name>.py`)."""
+    student = spec.model(cfg["model"]["name"]).reference(cfg["model"]).to(device)
     _load(student, weights["model"], True)
     teacher = None
     if cfg.get("teacher"):
-        teacher = ref_model.build(cfg["teacher"]).to(device).eval()
+        teacher = spec.model(cfg["teacher"]["name"]).reference(cfg["teacher"]).to(device).eval()
         _load(teacher, weights["teacher"], False)
     for m in (student, teacher):
         if m is not None:

@@ -61,11 +61,11 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
     it)."""
     import torch
 
-    from harness import entries, report, spec
+    from harness import report, spec
 
     t_start = time.perf_counter() if t_start is None else t_start
     cuda = torch.device(device).type == "cuda"
-    entry = entries.ENTRIES[cell.traffic["entry"]](cell.config, cell.traffic, seed, device)
+    entry = spec.entry(cell.traffic["entry"]).make(cell.config, cell.traffic, seed, device)
     try:
         entry.setup()
         rec = entry.window(seconds)

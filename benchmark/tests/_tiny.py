@@ -1,7 +1,9 @@
-"""A tiny copy of the benchmark in a temporary directory: every cell of
-the real `BENCHMARK.json` with its configuration cut to CPU size (64 wide,
-2 blocks, 4 x 32 x 32 clips, float32 compute, the plain attention) and
-batches of 4; the real traffic fields, limits and metric readers otherwise."""
+"""A tiny copy of the benchmark in a temporary directory: every file of
+the benchmark but its tests and caches, and every cell of the real
+`BENCHMARK.json` with its configuration cut to CPU size (64 wide, 2
+blocks, 4 x 32 x 32 clips, float32 compute, the plain attention) and
+batches of 4; the real traffic fields, limits, entries, models and metric
+readers otherwise."""
 
 from __future__ import annotations
 
@@ -28,8 +30,7 @@ def tiny_config(cfg: dict) -> dict:
 def tiny_bench(tmp: str) -> tuple:
     """(spec path, bench dir) of the tiny copy under `tmp`."""
     bench = os.path.join(tmp, "benchmark")
-    for sub in ("metrics", "limits", "traffic"):
-        shutil.copytree(os.path.join(BENCH_DIR, sub), os.path.join(bench, sub))
+    shutil.copytree(BENCH_DIR, bench, ignore=shutil.ignore_patterns(".cache", "__pycache__", "tests", "configs"))
     os.makedirs(os.path.join(bench, "configs"))
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         spec = json.load(f)

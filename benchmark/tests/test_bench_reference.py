@@ -20,7 +20,7 @@ def bench(tmp_path_factory):
 
 def _train(bench, name):
     cell = spec.load_cell(name, *bench)
-    entry = entries.ENTRIES[cell.traffic["entry"]](cell.config, cell.traffic, SEED, "cpu")
+    entry = spec.entry(cell.traffic["entry"]).make(cell.config, cell.traffic, SEED, "cpu")
     entry.setup()
     entry.release()
     return entry
@@ -48,7 +48,7 @@ def test_control_and_fault_read_far_above_the_program(bench, name):
 
 def test_reference_follows_the_port_final_test(bench):
     cell = spec.load_cell("slot-k400-eval", *bench)
-    entry = entries.FinalTestEntry(cell.config, cell.traffic, SEED, "cpu")
+    entry = spec.entry(cell.traffic["entry"]).make(cell.config, cell.traffic, SEED, "cpu")
     try:
         entry.setup()
         rec = entry.window(0.3)
@@ -67,7 +67,7 @@ def test_eval_faults_in_the_reference_read_above_their_limits(bench, fault, numb
     planted wrong: the number that watches it reads over its limit, the
     others stay at nought."""
     cell = spec.load_cell("slot-k400-eval", *bench)
-    entry = entries.FinalTestEntry(cell.config, cell.traffic, SEED, "cpu")
+    entry = spec.entry(cell.traffic["entry"]).make(cell.config, cell.traffic, SEED, "cpu")
     try:
         entry.setup()
         entry.window(0.3)
@@ -116,3 +116,31 @@ def test_near_ties_are_resolved_both_ways(bench, monkeypatch):
                for k, g in ref["first_step"]["grads"].items()}
     resolved = entries.resolve_near_ties({**entry.readings, "grad_norms": swapped}, ref, entries.moved_leaves(ref))
     assert resolved["swapped"] == [near[0]["sample"]]
+
+
+@pytest.mark.parametrize("seed", [0, 2, 3])
+def test_near_ties_are_searched_whole(seed):
+    """Six near-ties with changes that overlap across leaves, the program's
+    gradients those of three of them taken together: the search finds
+    those three, where toggling one at a time from none stops short of
+    them on these seeds."""
+    import torch
+
+    from reference.losses import TERMS
+
+    g = torch.Generator().manual_seed(seed)
+    grads = {f"leaf{i}": torch.randn(7, generator=g) for i in range(5)}
+    near = [{"sample": j, "terms": {k: 0.01 * (j + 1) for k in TERMS},
+             "grads": {k: torch.randn(7, generator=g) * 0.7 if (i + j) % 3 else None for i, k in enumerate(grads)}}
+            for j in range(6)]
+    terms = {**{k: 1.0 for k in TERMS}, "loss": float(len(TERMS))}
+    ref = {"first_step": {"terms": terms, "grads": grads, "near": near}}
+    taken = dict(grads)
+    for j in (1, 3, 4):
+        taken = {k: v if near[j]["grads"][k] is None else v + near[j]["grads"][k] for k, v in taken.items()}
+    prog = {"grad_norms": {k: float(v.norm()) for k, v in taken.items()}}
+    resolved = entries.resolve_near_ties(prog, ref, list(grads))
+    assert resolved["swapped"] == [1, 3, 4]
+    assert resolved["grad_norms"] == pytest.approx(prog["grad_norms"], rel=1e-6)
+    assert resolved["terms"]["action_loss"] == pytest.approx(1.0 + 0.02 + 0.04 + 0.05)
+    assert resolved["terms"]["loss"] == pytest.approx(sum(resolved["terms"][k] for k in TERMS))

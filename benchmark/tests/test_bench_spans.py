@@ -1,7 +1,8 @@
 """The per-layer metrics that read the program's own spans and counter
 (`harness/spans.py`): None without a profile and on the other kind of run,
 and in a traced tiny run of each cell on the CPU, each of the cell's
-readers reports, the train step's children within the step."""
+readers reports, but the graph's wait: on the CPU no train step replays a
+CUDA graph, so nothing enters `train.graph_wait`."""
 
 from __future__ import annotations
 
@@ -13,8 +14,9 @@ from run import run_cell
 from _tiny import tiny_bench
 
 SEED = 2 ** 31 + 41
-TRAIN = ("step_host_ms.train", "fame_host_ms.train", "teacher_host_ms.train", "student_host_ms.train",
-         "agg_host_ms.train", "loss_host_ms.train", "backward_host_ms.train", "optimizer_host_ms.train")
+TRAIN = ("step_host_ms.train", "graph_wait_ms.train")
+# spans the program enters only on a card
+CARD_ONLY = ("graph_wait_ms.train",)
 EVAL = ("forward_host_ms.eval", "stage_host_ms.eval", "fetch_wait_ms.eval", "h2d_mb.eval")
 
 
@@ -39,22 +41,55 @@ def test_a_reader_reads_nothing_without_a_profile_or_of_the_other_kind(name):
     assert read({"record": {"kind": other}, "profile": {"units": 3}}) is None
 
 
+def test_the_graph_wait_is_its_span_self_ms_per_steady_step(monkeypatch):
+    """The wait is read over the steady steps, not over the traced ones,
+    whose first steps follow a synchronize and wait less."""
+    from devias_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(profiling, "span_totals", lambda: {
+        "train.graph_wait": {"calls": 3, "total_ns": 3_000_000, "self_ns": 1_500_000}})
+    steady = {"units": 3, "spans": {"train.graph_wait": {"calls": 3, "total_ns": 9_000_000, "self_ns": 6_000_000}}}
+    read = spec.reader("graph_wait_ms.train")
+    assert read({"record": {"kind": "train"}, "profile": {"units": 3, "steady": steady}}) == 2.0
+    assert read({"record": {"kind": "train"}, "profile": {"units": 3, "steady": None}}) is None
+    assert read({"record": {"kind": "eval"}, "profile": {"units": 3, "steady": steady}}) is None
+
+
+def test_the_steady_steps_leave_the_traced_tally_to_the_traced_steps(bench):
+    """A train entry's profile reads the spans of its steady steps apart,
+    and the program's tally then holds the traced steps alone."""
+    from devias_tpu_torch.utils import profiling
+
+    from harness import entries
+
+    c = spec.load_cell("slot-k400-train", *bench)
+    entry = spec.entry(c.traffic["entry"]).make(c.config, c.traffic, SEED, "cpu")
+    entry.setup()
+    prof = entry.profile(2)
+    assert prof["steady"]["units"] == 2
+    assert prof["steady"]["spans"]["train.step"]["calls"] == 2
+    assert profiling.span_totals()["train.step"]["calls"] == 2
+    assert entries.STEADY_LEAD > 2
+    entry.release()
+
+
 @pytest.mark.parametrize("name", ["slot-k400-train", "slot-hvu-train", "slot-k400-eval"])
 def test_a_traced_run_reports_its_span_metrics(traced, bench, name):
     result = traced[name]
     assert result["correct"], result["compared"]
     listed = {m["name"] for m in spec.load_cell(name, *bench).per_layer} & set(TRAIN + EVAL)
+    assert ("graph_wait_ms.train" in listed) == name.endswith("-train")
+    listed -= set(CARD_ONLY)
     assert listed and all(isinstance(result["metrics"][m]["value"], float) for m in listed)
     assert set(result["metrics"]) & set(TRAIN + EVAL) == listed
-    assert ("teacher_host_ms.train" in listed) == (name == "slot-k400-train")
 
 
 @pytest.mark.parametrize("name", ["slot-k400-train", "slot-hvu-train"])
 def test_the_train_children_fit_in_the_step(traced, name):
+    """The step's span reads; its graph wait, a child of the step on a
+    card, reads nothing where no graph replays."""
     got = {k: v["value"] for k, v in traced[name]["metrics"].items() if k in TRAIN}
-    children = sum(v for k, v in got.items() if k != "step_host_ms.train")
-    assert 0 < children <= got["step_host_ms.train"]
-    assert all(v > 0 for v in got.values()), got
+    assert got.keys() == {"step_host_ms.train"} and got["step_host_ms.train"] > 0, got
 
 
 def test_the_eval_forward_leaves_out_its_staging(traced):

@@ -73,7 +73,10 @@ def test_a_cell_finds_its_files_by_name(name):
     cell = spec.load_cell(name)
     w = next(w for w in _spec()["workloads"] if w["name"] == name)
     assert cell.config["name"] == w["config"] and cell.traffic_name == w["traffic"]
-    assert cell.traffic["entry"] in ("slot_train", "hvu_train", "final_test")
+    assert callable(spec.entry(cell.traffic["entry"]).make)
+    assert all(callable(getattr(spec.model(cell.config[key]["name"]), f))
+               for key in ("model", "teacher") if cell.config.get(key)
+               for f in ("program", "reference", "tokens", "flops_per_clip"))
     assert cell.limits and all(callable(spec.reader(m["name"])) for m in cell.per_layer)
 
 
