@@ -25,13 +25,16 @@ from typing import Callable, Dict, Optional
 import torch
 
 from devias_tpu_torch.nn.segformer import person_masks
+from devias_tpu_torch.utils.profiling import count
 
 
 def segformer_frame_masks(apply_fn: Callable, videos: torch.Tensor) -> torch.Tensor:
     """Person masks of every other frame: `apply_fn` [N, H, W, 3] ->
     quarter-res logits, run without gradients; videos [B, T, H, W, C];
-    returns float32 masks [B, T//2, H, W]."""
+    returns float32 masks [B, T//2, H, W]. Counts the frames masked
+    (`mask_frames`)."""
     B, T, H, W, C = videos.shape
+    count("mask_frames", B * (T // 2))
     frames = videos[:, ::2].reshape(B * (T // 2), H, W, C)
     with torch.no_grad():
         logits = apply_fn(frames)

@@ -32,9 +32,13 @@ for one step function:
   `train.graph_wait`).
 * After each replay the host does what the step did on the host: the
   optimizer's and the state's counts go up by one, K1's launch counts gain
-  the captured launches (`kernels/attention.py::add_launches`) and the
-  counter `train_graph_replays` one. The metrics returned are copies,
-  which the next replay does not overwrite.
+  the captured launches (`kernels/attention.py::add_launches`), the
+  counter `train_graph_replays` one and each counter the capture made
+  (`utils/profiling.py::captured_counts`; `mask_frames` on the Segformer
+  path, none on FAME's) what it counted there. The metrics returned are
+  copies, which the next replay does not overwrite. Device spans inside
+  the step are event-record nodes of the graph, which every replay
+  re-times (`utils/profiling.py::device_span`).
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from devias_tpu_torch.kernels import attention
 from devias_tpu_torch.train.optim import ScheduledOptimizer
-from devias_tpu_torch.utils.profiling import count, recording, span
+from devias_tpu_torch.utils.profiling import captured_counts, count, recording, span
 
 # replays in flight at most
 RUN_AHEAD = 2
@@ -78,6 +82,7 @@ class StepGraph:
         self.replays = 0
         self.inflight = collections.deque()
         self.launches = ({}, {})
+        self.counts: Dict[str, int] = {}
 
     def run(self, state, optimizer, inputs: Dict[str, torch.Tensor], draws, generator: torch.Generator, U: int,
             forward_backward: Callable, body: Callable):
@@ -136,7 +141,7 @@ class StepGraph:
             torch.cuda.synchronize(device)
             torch.cuda.empty_cache()
             graph.register_generator_state(generator)
-            with torch.cuda.stream(stream):
+            with torch.cuda.stream(stream), captured_counts() as counted:
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     outputs = body(static_inputs, draws, generator)
@@ -155,7 +160,7 @@ class StepGraph:
             generator.set_state(gen_state)
             attention.set_launch_counts(*counts)
         torch.cuda.current_stream(device).wait_stream(stream)
-        self.graph, self.outputs, self.launches = graph, outputs, launches
+        self.graph, self.outputs, self.launches, self.counts = graph, outputs, launches, counted
         self.static_inputs, self.static_leaves = static_inputs, static_leaves
         self.signature, self.generator, self.state, self.version = signature, generator, state, optimizer.version
         return True
@@ -175,6 +180,8 @@ class StepGraph:
         self.inflight.append(self._recorded_event())
         attention.add_launches(*self.launches)
         count("train_graph_replays", 1)
+        for name, n in self.counts.items():
+            count(name, n)
         self.replays += 1
 
     def release(self) -> None:

@@ -45,11 +45,12 @@ failed (a step that waits for the host), runs eager as described above.
 The step function's `graph` attribute is its `StepGraph`.
 
 The steps' phases and the eval forward are spans of `utils/profiling.py`
-(`train.step`, `train.fame`, `train.teacher`, `train.student`,
-`train.loss`, `train.backward`, `train.optimizer`, `eval.forward`), and
-`to_device` stages host arrays under `h2d.stage` and counts their bytes;
-they record only under a profiler. A replay enters `train.step` and
-`train.graph_wait` alone.
+(`train.step`, `train.fame`, `train.mask_model`, `train.teacher`,
+`train.student`, `train.loss`, `train.backward`, `train.optimizer`,
+`eval.forward`), and `to_device` stages host arrays under `h2d.stage` and
+counts their bytes; they record only under a profiler. A replay enters
+`train.step` and `train.graph_wait` alone; the mask model's device span
+and its `mask_frames` count are part of the captured graph.
 """
 
 from __future__ import annotations
@@ -87,7 +88,7 @@ from devias_tpu_torch.losses.slot_loss import (
 )
 from devias_tpu_torch.train.graph import StepGraph, graph_safe
 from devias_tpu_torch.train.state import TrainState
-from devias_tpu_torch.utils.profiling import count, span
+from devias_tpu_torch.utils.profiling import count, device_span, span
 
 METRIC_NAMES = ("loss", "action_loss", "scene_loss", "cosine_loss", "mask_prediction_loss",
                 "mask_distill_loss", "class_acc")
@@ -157,13 +158,15 @@ def _segformer_mix(videos: torch.Tensor, labels: torch.Tensor, step_cfg: TrainSt
     video; under `device_normalize` the step's [0, 1] clips are normalized
     for it), then the mix per block of `num_data_shards` (`_by_shards`:
     each block permutes only its own samples, as FAME's blocks do), with
-    FAME's `prob_aug`."""
+    FAME's `prob_aug`. The masks are the span `train.mask_model`, on the
+    host and on the card (`utils/profiling.py::device_span`)."""
     seg_in = videos
     if step_cfg.device_normalize:
         mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=videos.device)
         std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=videos.device)
         seg_in = (videos - mean) / std
-    masks = segformer_frame_masks(segformer_apply, seg_in)
+    with span("train.mask_model"), device_span("train.mask_model", videos.device):
+        masks = segformer_frame_masks(segformer_apply, seg_in)
     return _by_shards(lambda sl, d: segformer_mix_sample(masks[sl], videos[sl], labels[sl], step_cfg.fame.prob_aug,
                                                          generator=generator, draws=d),
                       videos.shape[0], step_cfg.num_data_shards, draws)

@@ -4,7 +4,9 @@ per-update scalars read from its device table against the arithmetic on
 Python floats it replaced, the table's counter through a state dict,
 FAME's constants made once per device against the ones it made per call,
 the predicate that keeps CPU runs, layouts and placed states eager, and a
-replay's accounting and run-ahead with a stub graph."""
+replay's accounting and run-ahead with a stub graph; on a card (marked
+`cuda`), a slot step with the Segformer mix captured and replayed against
+its eager steps."""
 
 import copy
 import math
@@ -21,7 +23,7 @@ from devias_tpu_torch.nn import create_model
 from devias_tpu_torch.train import (OptimConfig, ScheduledOptimizer, TrainState, TrainStepConfig, make_optimizer,
                                     make_slot_train_step)
 from devias_tpu_torch.train.graph import RUN_AHEAD, StepGraph, graph_safe
-from devias_tpu_torch.utils.profiling import counter_totals
+from devias_tpu_torch.utils.profiling import count, counter_totals
 
 SMALL = dict(depth=2, embed_dim=64, num_heads=4)
 SLOT = dict(num_classes=5, num_scene_classes=4, num_latents=2, agg_depth=2, **SMALL)
@@ -320,3 +322,93 @@ def test_a_replay_adds_the_captured_launches_and_waits_two_back():
         assert heads["K1-fwd"] == {12: 1} and heads["K1-fwd-stats"] == heads["K1-bwd"] == {12: 60}
     finally:
         attention.set_launch_counts(*before)
+
+
+def test_a_replay_adds_the_counts_its_capture_made():
+    """The counts made while the step was captured (`mask_frames` on the
+    Segformer path) are added after each replay, under a profiler; a
+    capture that counted nothing (FAME's) adds nothing but the replay."""
+    for counts in ({"mask_frames": 96}, {}):
+        sg = StepGraph()
+        sg.graph, sg.counts = _StubGraph(), counts
+        sg._recorded_event = lambda: _StubEvent([], 0)
+        before = (attention.launch_counts(), attention.launch_counts_by_heads())
+        count("unprofiled", 0)  # the profiled replays below start the tally anew
+        try:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+                for _ in range(3):
+                    sg.replay()
+            assert counter_totals() == {"train_graph_replays": 3, **{k: 3 * v for k, v in counts.items()}}
+        finally:
+            attention.set_launch_counts(*before)
+
+
+@pytest.mark.cuda
+def test_a_segformer_step_replays_its_eager_steps_on_the_card(monkeypatch):
+    """The slot step with `segformer_apply` (the port's tiny Segformer in
+    bfloat16) on the card: three steps captured and replayed against three
+    eager steps (capture forbidden) from the same weights, clips, draws and
+    generator, as close as two eager runs are; under a profiler each
+    replay counts its B T/2 masked frames (the first step, which captures,
+    runs unprofiled), and the mask model's device span, recorded in the
+    graph, reads a time after the replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import devias_tpu_torch.train.step as step_module
+    from devias_tpu_torch.aug import FAMEConfig
+    from devias_tpu_torch.nn.segformer import create_segformer
+    from devias_tpu_torch.utils import device_span_ms, span
+
+    from _segformer_weights import TINY as TINY_SEGFORMER
+
+    card = torch.device("cuda")
+    B = 3
+
+    def run():
+        model = create_model("slot_vit_base_patch16_224", device=card, seed=0, img_size=64, num_frames=4,
+                             drop_path_rate=0.1, dtype=torch.bfloat16, **SLOT)
+        teacher = create_model("vit_base_patch16_224", device=card, seed=1, img_size=64, num_frames=4,
+                               dtype=torch.bfloat16, **TEACHER)
+        seg = create_segformer(TINY_SEGFORMER, device=card, seed=2, dtype=torch.bfloat16)
+        with torch.no_grad():
+            seg.decode_head.classifier.bias[11] += 0.05
+        opt, lr_fn = make_optimizer(model, OptimConfig(**dict(OPT, weight_decay=0.05)), device=card)
+        state = TrainState.create(model, opt, device=card)
+        step_cfg = TrainStepConfig(use_fame=False, fame=FAMEConfig(beta=0.5, prob_aug=0.8))
+        step = make_slot_train_step(model, teacher, opt, SlotLossConfig(num_action_classes=5, num_scene_classes=4),
+                                    step_cfg, lr_fn, segformer_apply=seg, device=card)
+        g = torch.Generator(device=card).manual_seed(11)
+        data = [({"videos": torch.randn((B, 4, 64, 64, 3), generator=g, device=card),
+                  "labels": torch.randint(0, 5, (B,), generator=g, device=card)},
+                 {"perm": torch.rand(B, generator=g, device=card).argsort(),
+                  "keep": torch.rand(B, generator=g, device=card) < 0.8,
+                  "frame": torch.randint(0, 2, (), generator=g, device=card)}) for _ in range(3)]
+        gen = torch.Generator(device=card).manual_seed(5)
+        # the first step captures, which no profiler may watch; the other
+        # two replay under one
+        held = [step(state, data[0][0], generator=gen, draws=data[0][1])]
+        with span("unprofiled"):
+            pass
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            held += [step(state, batch, generator=gen, draws=draws) for batch, draws in data[1:]]
+            torch.cuda.synchronize()
+        frames = counter_totals().get("mask_frames")
+        return ({"metrics": [{k: float(v) for k, v in m.items()} for m in held],
+                 "params": [p.detach().float().clone() for p in model.parameters()]},
+                step.graph, frames, device_span_ms("train.mask_model"))
+
+    def gap(a, b):
+        g = max(abs(x[k] - y[k]) for x, y in zip(a["metrics"], b["metrics"]) for k in x)
+        return max(g, max(float((x - y).abs().max()) for x, y in zip(a["params"], b["params"])))
+
+    with monkeypatch.context() as m:
+        m.setattr(step_module, "graph_safe", lambda *a: False)
+        eager, eager_graph, eager_frames, _ = run()
+        again = run()[0]
+    graphed, sg, frames, ms = run()
+    assert eager_graph.replays == 0 and eager_frames == 2 * B * 2
+    # the first call captured, and all three are replays
+    assert not sg.failed and sg.replays == 3 and sg.counts == {"mask_frames": B * 2}
+    assert frames == 2 * B * 2
+    assert ms is not None and ms > 0
+    assert gap(graphed, eager) <= gap(again, eager), (gap(graphed, eager), gap(again, eager))

@@ -11,7 +11,11 @@ the CPU:
 - the tally starts again with a new profiled stretch;
 - the spans are the profiler's CPU user annotations;
 - `h2d_bytes` stays 0 when nothing crosses to a card, and counts the bytes
-  of each host array sent to one (marked `cuda`)."""
+  of each host array sent to one (marked `cuda`);
+- a tiny slot step with the Segformer mix enters `train.mask_model` inside
+  `train.fame` once a step and counts B T/2 `mask_frames`; a device span
+  reads None off the card, and counts made while a graph is captured go
+  to the capture's own tally."""
 
 import timeit
 
@@ -27,7 +31,11 @@ from devias_tpu_torch.nn import create_model
 from devias_tpu_torch.train import (OptimConfig, TrainState, TrainStepConfig, make_eval_step, make_hvu_train_step,
                                     make_optimizer, make_slot_train_step)
 from devias_tpu_torch.train.step import to_device
-from devias_tpu_torch.utils import count, counter_totals, span, span_totals
+from devias_tpu_torch.nn.segformer import create_segformer
+from devias_tpu_torch.utils import count, counter_totals, device_span, device_span_ms, span, span_totals
+from devias_tpu_torch.utils.profiling import captured_counts
+
+from _segformer_weights import TINY as TINY_SEGFORMER
 
 SMALL = dict(depth=2, embed_dim=64, num_heads=4)
 SLOT = dict(num_classes=5, num_scene_classes=4, num_latents=2, agg_depth=8, img_size=32, **SMALL)
@@ -184,3 +192,51 @@ def test_h2d_bytes_counts_each_host_array_sent_to_the_card():
     assert counter_totals() == {"h2d_bytes": 2 * clips.nbytes}
     assert span_totals()["h2d.stage"]["calls"] == 2
     assert torch.equal(on_card[1].cpu(), torch.from_numpy(clips))
+
+
+def _segformer_steps(B=2):
+    """Two steps of a tiny slot step with the Segformer mix in FAME's
+    place (the port's tiny Segformer, float32)."""
+    model = create_model("slot_vit_base_patch16_224", device="cpu", seed=0, **SLOT)
+    teacher = create_model("vit_base_patch16_224", device="cpu", seed=1, **TEACHER)
+    opt, lr_fn = make_optimizer(model, OptimConfig(lr=1e-3, total_steps=8, warmup_steps=2), device="cpu")
+    state = TrainState.create(model, opt, device="cpu")
+    step_cfg = TrainStepConfig(use_fame=False, fame=FAMEConfig(beta=0.5, prob_aug=0.8))
+    step = make_slot_train_step(model, teacher, opt, SlotLossConfig(5, 4), step_cfg, lr_fn,
+                                segformer_apply=create_segformer(TINY_SEGFORMER, device="cpu"), device="cpu")
+    batch = {"videos": _clips(B), "labels": np.arange(B) % 5}
+    gen = torch.Generator().manual_seed(0)
+    return lambda: [step(state, batch, generator=gen) for _ in range(2)]
+
+
+def test_a_segformer_step_records_its_mask_model_and_counts_its_frames():
+    _profiled(_segformer_steps(B=3))
+    t = span_totals()
+    calls = {k: v["calls"] for k, v in t.items()}
+    assert calls == dict.fromkeys(TRAIN_SPANS + ("train.teacher", "train.mask_model"), 2)
+    # 3 clips of 4 frames: 6 masked frames a step
+    assert counter_totals() == {"mask_frames": 2 * 6}
+    # the mask model is a child of the mix
+    assert t["train.mask_model"]["total_ns"] <= t["train.fame"]["total_ns"] - t["train.fame"]["self_ns"]
+
+
+def test_a_device_span_reads_nothing_off_the_card():
+    with profile(activities=[ProfilerActivity.CPU]):
+        with device_span("test.block", torch.device("cpu")):
+            torch.ones(8) + 1
+    assert device_span_ms("test.block") is None
+    assert device_span_ms("never.entered") is None
+
+
+def test_counts_made_in_a_capture_go_to_its_own_tally():
+    _profiled(lambda: count("rows", 1))
+    before = counter_totals()
+    with captured_counts() as counted:
+        count("mask_frames", 8)
+        with profile(activities=[ProfilerActivity.CPU]):
+            count("mask_frames", 8)
+    assert counted == {"mask_frames": 16} and counter_totals() == before
+    # outside the block, counts go to the tally again
+    with profile(activities=[ProfilerActivity.CPU]):
+        count("rows", 2)
+    assert counter_totals() == {"rows": 3}
