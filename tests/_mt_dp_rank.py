@@ -4,8 +4,9 @@
 
     python tests/_mt_dp_rank.py RANK DIR
 
-It reads DIR/ref.pt (the weights, batches and JAX metrics the test wrote),
-joins the gloo group of DEVIAS_TPU_COORDINATOR / NUM_PROCS / PROC_ID,
+It reads DIR/ref.pt (the weights and batches the test wrote), joins the
+gloo group of DEVIAS_TPU_COORDINATOR / NUM_PROCS / PROC_ID
+(`tests/_torch_parallel.py::run_ranks` starts it),
 runs the step with `dp_mesh=make_mesh()` on its rows of every micro-batch
 and writes DIR/rank{RANK}.pt: (metrics per step, final parameters, summed
 lr)."""
@@ -37,7 +38,6 @@ def main(rank: int, out: Path) -> None:
     from devias_tpu_torch.nn import create_model
     from devias_tpu_torch.train import OptimConfig, TrainState, make_multi_task_train_step, make_optimizer
 
-    torch.set_num_threads(1)
     assert maybe_init_distributed("cpu") and dist.get_backend() == "gloo"
     ref = torch.load(out / "ref.pt", weights_only=False)
     model = _load(create_model("disentangle_vit_base_patch16_224", device="cpu", num_classes=A, num_scene_classes=S,

@@ -1,12 +1,28 @@
-"""Helpers of the port's parallel-mode tests (`tests/test_torch_zero.py`,
-`test_torch_tensor_parallel.py`, `test_torch_pipeline.py`), not a test: the
-small models' JAX parameters, the four gloo ranks each file runs as its own
-program, and the trajectory check of `tests/test_torch_data_parallel.py`."""
+"""Helpers of the port's tests, not a test.
+
+- `thread_budget`: the torch threads of a pytest-xdist worker while it
+  runs a test of the port (the repo root's `conftest.py` sets them) and
+  of the rank processes it starts.
+- `start_ranks` / `join` / `run_ranks`: the one launcher of the tests'
+  gloo rank groups, each group under one deadline. Its users:
+  `test_torch_zero.py`, `test_torch_tensor_parallel.py`,
+  `test_torch_pipeline.py`, `test_torch_data_parallel.py`,
+  `test_torch_seq_parallel.py`, `test_torch_dp_batch_ops.py`,
+  `test_torch_multi_task.py` (through `_mt_dp_rank.py`), the CLI files
+  `test_torch_cli.py`, `test_torch_cli_dp.py` and `test_torch_cli_sp.py`,
+  and `test_torch_parallel_launcher.py`, which holds its contract.
+- The small models' JAX parameters and the port's twins of them
+  (`jax_params`, `port_models`) and the DP trajectory check of
+  `tests/test_torch_data_parallel.py` (`check_trajectory`), shared by the
+  ZeRO, TP and PP files, each of which is also its ranks' program."""
 
 import os
 import socket
 import subprocess
 import sys
+import tempfile
+import time
+from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
@@ -19,6 +35,17 @@ TEACHER = dict(num_classes=4, use_mean_pooling=False, depth=2, embed_dim=64, num
 # a bias every slot query shares cancels in the slot softmax: its true
 # gradient is zero and both frameworks return rounding noise
 ZERO_GRAD = ("agg_block.layers.0.0.norm.bias",)
+
+
+def thread_budget(procs: int = 1) -> int:
+    """Torch threads for each of `procs` processes that share one test
+    worker's part of the CPUs: the CPUs this process may run on, split over
+    pytest-xdist's workers (`PYTEST_XDIST_WORKER_COUNT`; one outside xdist)
+    and the `procs`, at least one. Many small ops on more threads than
+    cores wait on each other."""
+    cpus = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") else os.cpu_count() or 1
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    return max(1, cpus // (workers * procs))
 
 
 def jax_params(name: str, seed: int, **kw):
@@ -53,24 +80,94 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(program: str, out: Path, world: int = WORLD, timeout: int = 300) -> list:
-    """Run `program RANK OUT` in `world` processes joined through
-    DEVIAS_TPU_COORDINATOR; all must exit 0. Returns each rank's
-    `rank{r}.pt`."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+@dataclass
+class Ranks:
+    """A started rank group: its processes in rank order, each one's output
+    file and the monotonic time by which all must have exited."""
+
+    procs: list
+    logs: list
+    deadline: float
+
+
+def start_ranks(argvs: list, timeout: float) -> Ranks:
+    """Start rank r as `python *argvs[r]` from the repo root, the ranks
+    joined through DEVIAS_TPU_COORDINATOR / NUM_PROCS / PROC_ID on a free
+    port, each on `thread_budget(len(argvs))` torch threads, with the repo
+    and `tests/` on its path. The whole group must end within `timeout`
+    seconds of this call (`join`)."""
+    world = len(argvs)
+    path = os.pathsep.join(filter(None, (str(ROOT), str(ROOT / "tests"), os.environ.get("PYTHONPATH"))))
+    env = dict(os.environ, PYTHONPATH=path, OMP_NUM_THREADS=str(thread_budget(world)),
                DEVIAS_TPU_COORDINATOR=f"127.0.0.1:{_free_port()}", DEVIAS_TPU_NUM_PROCS=str(world))
-    procs = [subprocess.Popen([sys.executable, program, str(r), str(out)], cwd=ROOT,
-                              env=dict(env, DEVIAS_TPU_PROC_ID=str(r)), stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    logs = []
+    logs = [tempfile.TemporaryFile("w+") for _ in range(world)]
+    procs = [subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=dict(env, DEVIAS_TPU_PROC_ID=str(r)),
+                              stdout=log, stderr=subprocess.STDOUT, text=True)
+             for r, (argv, log) in enumerate(zip(argvs, logs))]
+    return Ranks(procs, logs, time.monotonic() + timeout)
+
+
+def _output(log) -> str:
+    log.seek(0)
+    text = log.read()
+    log.close()
+    return text
+
+
+def _kill(*groups: Ranks) -> None:
+    for p in (p for g in groups for p in g.procs):
+        p.kill()
+        p.wait()
+
+
+def join(*groups: Ranks) -> list:
+    """Wait for every rank of `groups`; returns each rank's output, group
+    by group. Fails as soon as a rank exits non-zero, with its output's
+    tail, and at a group's deadline, naming its ranks still running; either
+    way it first kills every rank."""
+    procs = [p for g in groups for p in g.procs]
+    failed = late = None
     try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
+        while not failed and not late and not all(p.poll() == 0 for p in procs):
+            time.sleep(0.05)
+            for i, g in enumerate(groups):
+                codes = [p.poll() for p in g.procs]
+                failed = failed or next(((i, r) for r, c in enumerate(codes) if c), None)
+                if time.monotonic() > g.deadline and None in codes:
+                    late = late or (i, [r for r, c in enumerate(codes) if c is None])
     finally:
-        for p in procs:
-            p.kill()
-    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-4000:]
-    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
+        _kill(*groups)
+    outputs = [[_output(log) for log in g.logs] for g in groups]
+    if failed:
+        i, r = failed
+        raise AssertionError(f"rank {r} of {len(groups[i].procs)} exited {groups[i].procs[r].returncode}:\n"
+                             + outputs[i][r][-4000:])
+    if late:
+        i, running = late
+        raise AssertionError(f"ranks {running} of {len(groups[i].procs)} still running at the deadline:\n"
+                             + outputs[i][running[0]][-4000:])
+    return [text for group in outputs for text in group]
+
+
+def run_ranks(program: str, out: Path, side, world: int = WORLD, *, timeout: float):
+    """`program RANK OUT` in `world` ranks beside `side(out, start)` in
+    this process: `side` writes what the ranks read to `out`, calls
+    `start()` to start them (`start_ranks`) and goes on while they run.
+    Then `join`; returns what `side` returned and each rank's
+    `out/rank{r}.pt`. If `side` fails, its ranks are killed."""
+    groups = []
+
+    def start():
+        groups.append(start_ranks([[str(program), str(r), str(out)] for r in range(world)], timeout))
+
+    try:
+        result = side(out, start)
+    except BaseException:
+        _kill(*groups)
+        raise
+    assert len(groups) == 1, f"the ranks were started {len(groups)} times"
+    join(*groups)
+    return result, [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
 def check_trajectory(metrics, final, lr_sum, want_metrics, want_final, rtol=2e-4):

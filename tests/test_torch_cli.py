@@ -15,9 +15,6 @@ refusing that head dim."""
 import functools
 import json
 import os
-import socket
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +30,8 @@ from devias_tpu_torch.cli import common
 from devias_tpu_torch.cli import run_slot_finetuning as cli
 from devias_tpu_torch.eval import merge_results, parse_result_file
 
+from _torch_parallel import join, start_ranks
+
 BASE = [
     "--synthetic_data", "--smoke_tiny", "--batch_size", "4", "--num_frames", "8", "--sampling_rate", "2",
     "--input_size", "32", "--short_side_size", "32", "--test_num_segment", "2", "--test_num_crop", "2",
@@ -41,6 +40,7 @@ BASE = [
 ]
 # the JAX parser's default, and the reason each differs
 DIFFERENT_DEFAULTS = {"device": ("tpu", "cuda")}  # entry points run on the card unless asked for the CPU
+RANKS_TIMEOUT = 110  # s: over three times the file's slowest test under -n 6, 31.57 s
 
 
 @pytest.fixture(scope="module")
@@ -70,21 +70,8 @@ def test_unported_flags_raise(flags, filelists, tmp_path):
     out = tmp_path / "out"
     argv = BASE + ["--device", "cpu", "--data_path", filelists, "--epochs", "1", "--max_steps_per_epoch", "2",
                    "--mask_model", "FAME", "--model_ema", "--output_dir", str(out)] + flags
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
     code = f"from devias_tpu_torch.cli import run_slot_finetuning as c\nc.main(c.get_args({argv!r}))\n"
-    procs = [subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True, env={**os.environ, "DEVIAS_TPU_COORDINATOR": f"127.0.0.1:{port}",
-                                              "DEVIAS_TPU_NUM_PROCS": "2", "DEVIAS_TPU_PROC_ID": str(r),
-                                              "OMP_NUM_THREADS": "2"})
-             for r in range(2)]
-    try:
-        outs = [p.communicate(timeout=180)[0] for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    assert [p.returncode for p in procs] == [0, 0], outs
+    join(start_ranks([["-c", code]] * 2, timeout=RANKS_TIMEOUT))
     with open(out / "log.txt") as f:
         records = [json.loads(line) for line in f]
     assert records[0]["n_steps"] == 2 and np.isfinite(records[0]["train_loss"]) and "val_acc1" in records[0]

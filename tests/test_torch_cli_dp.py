@@ -17,8 +17,6 @@ training shards and can stop the run after epoch 0's record."""
 
 import json
 import os
-import socket
-import subprocess
 import sys
 from pathlib import Path
 
@@ -26,7 +24,9 @@ import numpy as np
 import pytest
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from _torch_parallel import join, start_ranks  # noqa: E402
+
 N_TRAIN = 16
 BASE = [
     "--device", "cpu", "--synthetic_data", "--smoke_tiny", "--batch_size", "4", "--num_frames", "8",
@@ -40,6 +40,7 @@ BASE = [
 TRAIN = ["--epochs", "2", "--max_steps_per_epoch", "1", "--warmup_epochs", "0", "--lr", "0.064", "--mask_model",
          "FAME", "--save_ckpt_freq", "1", "--model_ema", "--drop_path", "0.1"]
 EVAL = ["--eval", "--run_knn", "--nb_knn", "3"]
+RANKS_TIMEOUT = 180  # s: over three times the file's slowest test under -n 6, 49.64 s
 
 
 class _Stop(Exception):
@@ -84,31 +85,10 @@ def _process_main(spec: dict) -> None:
     dist.destroy_process_group()
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _start(argv, out, stop=False):
-    """Start one run of two processes; returns its processes."""
-    port = _free_port()
+    """Start one run of two processes (`_process_main`)."""
     spec = json.dumps({"argv": argv, "out": str(out), "stop": stop})
-    return [subprocess.Popen([sys.executable, __file__, spec], cwd=ROOT, stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True,
-                             env={**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1",
-                                  "DEVIAS_TPU_COORDINATOR": f"127.0.0.1:{port}", "DEVIAS_TPU_NUM_PROCS": "2",
-                                  "DEVIAS_TPU_PROC_ID": str(r)})
-            for r in range(2)]
-
-
-def _wait(procs):
-    try:
-        logs = [p.communicate(timeout=240)[0] for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    assert [p.returncode for p in procs] == [0, 0], "\n".join(logs)[-4000:]
+    return start_ranks([[__file__, spec]] * 2, timeout=RANKS_TIMEOUT)
 
 
 def _records(path):
@@ -139,10 +119,9 @@ def runs(tmp_path_factory):
         cli.main(cli.get_args(base + TRAIN + ["--epochs", "1", "--output_dir", str(out["one"])]))
         cli.main(cli.get_args(base + EVAL + ["--output_dir", str(out["one_eval"])]))
     finally:
-        for procs in first.values():
-            _wait(procs)
-    _wait(_start(base + TRAIN + ["--dist_eval", "--auto_resume", "--output_dir", str(out["dp_stop"])],
-                 tmp / "dp_resume"))
+        join(*first.values())
+    join(_start(base + TRAIN + ["--dist_eval", "--auto_resume", "--output_dir", str(out["dp_stop"])],
+                tmp / "dp_resume"))
     out["dp_resume"] = tmp / "dp_resume"
     return out
 

@@ -8,12 +8,14 @@ equal the one without it bitwise."""
 
 import json
 import os
-import socket
-import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from _torch_parallel import join, start_ranks  # noqa: E402
 
 BASE = [
     "--synthetic_data", "--smoke_tiny", "--batch_size", "4", "--num_frames", "8", "--sampling_rate", "2",
@@ -21,6 +23,7 @@ BASE = [
     "--num_workers", "2", "--data_set", "UCF101", "--nb_classes", "5", "--num_latents", "2", "--agg_depth", "2",
     "--agg_weights_tie",
 ]
+RANKS_TIMEOUT = 80  # s: over three times the file's slowest test under -n 6, 20.41 s
 
 
 def _filelists(tmp_path):
@@ -34,22 +37,9 @@ def _filelists(tmp_path):
 def _run_two_ranks(runs):
     """Each of two gloo processes runs `main` on each argv of `runs` in
     turn; both must exit 0."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
     code = "from devias_tpu_torch.cli import run_slot_finetuning as c\n" + "".join(
         f"c.main(c.get_args({argv!r}))\n" for argv in runs)
-    procs = [subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True, env={**os.environ, "DEVIAS_TPU_COORDINATOR": f"127.0.0.1:{port}",
-                                              "DEVIAS_TPU_NUM_PROCS": "2", "DEVIAS_TPU_PROC_ID": str(r),
-                                              "OMP_NUM_THREADS": "2"})
-             for r in range(2)]
-    try:
-        outs = [p.communicate(timeout=180)[0] for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    assert [p.returncode for p in procs] == [0, 0], outs
+    join(start_ranks([["-c", code]] * 2, timeout=RANKS_TIMEOUT))
 
 
 def test_sp_shards_trains_over_two_processes(tmp_path):

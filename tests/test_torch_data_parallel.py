@@ -19,17 +19,19 @@ by gloo (this file is their program, `python tests/test_torch_data_parallel.py
 RANK DIR`, and imports no JAX at module level). The JAX step splits each
 micro-batch of the global batch into contiguous FAME shards; a rank of the
 port's run holds its own shard of every micro-batch, so rank r's local
-batch is shard r of each micro-batch in turn."""
+batch is shard r of each micro-batch in turn.
+The ranks start first, on the weights and batches the pytest process
+writes to `ref.pt`; the JAX results are computed while they run."""
 
-import os
-import socket
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from _torch_parallel import run_ranks  # noqa: E402
 
 WORLD = 4
 SMALL = dict(depth=2, embed_dim=64, num_heads=4)
@@ -43,7 +45,7 @@ PROB_AUG = 0.8
 DP_U, DP_B, DP_STEPS = 2, 16, 2
 # (c): global batch 4 = 2 data rows of 2 clips, each row over 2 seq ranks
 SP_SEQ, SP_B, SP_STEPS = 2, 4, 1
-ROOT = Path(__file__).resolve().parents[1]
+RANKS_TIMEOUT = 210  # s: over three times the file's slowest test under -n 6, 59.43 s
 # a bias every slot query shares cancels in the slot softmax: its true
 # gradient is zero and both frameworks return rounding noise
 ZERO_GRAD = ("agg_block.layers.0.0.norm.bias",)
@@ -68,9 +70,10 @@ def _fame_draws(jax, key, step, U, mb, n_shards):
     return out
 
 
-def _jax_side(out: Path) -> dict:
-    """Weights, batches, draws and the JAX package's DP and DPxSP results,
-    saved for the ranks."""
+def _jax_side(out: Path, start) -> dict:
+    """Weights, batches and draws, saved to `out/ref.pt` for the ranks,
+    which `start()` then starts; meanwhile the JAX package's DP and DPxSP
+    results."""
     import jax
     import jax.numpy as jnp
 
@@ -99,38 +102,40 @@ def _jax_side(out: Path) -> dict:
 
     jm, params = params_of("slot_vit_base_patch16_224", 3, **SLOT)
     jt, tparams = params_of("vit_base_patch16_224", 4, **TEACHER)
-    tx, _ = jax_make_optimizer(params, JaxOptimConfig(**OPT))
     data = np.random.default_rng(5)
     key = jax.random.PRNGKey(7)
+
+    def inputs(U, B, steps, n_shards):
+        batches = [{"videos": data.normal(size=(B, T, HW, HW, 3)).astype(np.float32),
+                    "labels": data.integers(0, 5, size=B)} for _ in range(steps)]
+        return {"batches": batches, "draws": [_fame_draws(jax, key, s, U, B // U, n_shards) for s in range(steps)]}
+
+    ref = {"student": state_dict_from_jax(params, "slot", SLOT["agg_depth"]),
+           "teacher": state_dict_from_jax(tparams, "plain"),
+           "dp": inputs(DP_U, DP_B, DP_STEPS, WORLD), "sp": inputs(1, SP_B, SP_STEPS, WORLD // SP_SEQ)}
+    torch.save(ref, out / "ref.pt")
+    start()
+    tx, _ = jax_make_optimizer(params, JaxOptimConfig(**OPT))
     fame = JaxFAMEConfig(beta=0.5, prob_aug=PROB_AUG)
 
-    def run(mesh, step_cfg, B, steps, **step_kw):
+    def trajectory(run, mesh, step_cfg, **step_kw):
         jstep = jax.jit(jax_make_slot_train_step(jm, jt, tx, JaxSlotLossConfig(5, 4), step_cfg, **step_kw))
         repl = jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec())
         state = jax.device_put(JaxTrainState.create(params, tx), repl)
         teacher = jax.device_put(tparams, repl)
-        batches, metrics, draws = [], [], []
-        for s in range(steps):
-            batch = {"videos": data.normal(size=(B, T, HW, HW, 3)).astype(np.float32),
-                     "labels": data.integers(0, 5, size=B)}
+        run["metrics"] = []
+        for batch in run["batches"]:
             state, placed = place_data_parallel(mesh, state, {k: jnp.asarray(v) for k, v in batch.items()})
             with mesh:
                 state, m = jstep(state, teacher, placed, key)
-            batches.append(batch)
-            metrics.append({k: float(v) for k, v in m.items()})
-            draws.append(_fame_draws(jax, key, s, step_cfg.update_freq, B // step_cfg.update_freq,
-                                     step_cfg.num_data_shards))
-        final = state_dict_from_jax(jax.tree.map(np.asarray, state.params), "slot", SLOT["agg_depth"])
-        return {"batches": batches, "metrics": metrics, "draws": draws, "final": final}
+            run["metrics"].append({k: float(v) for k, v in m.items()})
+        run["final"] = state_dict_from_jax(jax.tree.map(np.asarray, state.params), "slot", SLOT["agg_depth"])
 
-    dp = run(make_mesh(devices=jax.devices()[:WORLD]),
-             JaxTrainStepConfig(update_freq=DP_U, use_fame=True, fame=fame, num_data_shards=WORLD), DP_B, DP_STEPS)
+    trajectory(ref["dp"], make_mesh(devices=jax.devices()[:WORLD]),
+               JaxTrainStepConfig(update_freq=DP_U, use_fame=True, fame=fame, num_data_shards=WORLD))
     sp_mesh = make_sp_mesh(SP_SEQ, devices=jax.devices()[:WORLD])
-    sp = run(sp_mesh, JaxTrainStepConfig(use_fame=True, fame=fame, num_data_shards=WORLD // SP_SEQ), SP_B, SP_STEPS,
-             sp_mesh=sp_mesh)
-    ref = {"student": state_dict_from_jax(params, "slot", SLOT["agg_depth"]),
-           "teacher": state_dict_from_jax(tparams, "plain"), "dp": dp, "sp": sp}
-    torch.save(ref, out / "ref.pt")
+    trajectory(ref["sp"], sp_mesh, JaxTrainStepConfig(use_fame=True, fame=fame, num_data_shards=WORLD // SP_SEQ),
+               sp_mesh=sp_mesh)
     return ref
 
 
@@ -180,7 +185,6 @@ def _rank_main(rank: int, out: Path) -> None:
     from devias_tpu_torch.train import TrainStepConfig
     from devias_tpu_torch.train.step import mix_clips
 
-    torch.set_num_threads(1)
     assert maybe_init_distributed("cpu") and dist.get_backend() == "gloo"
     ref = torch.load(out / "ref.pt", weights_only=False)
     res = {}
@@ -214,30 +218,10 @@ def _rank_main(rank: int, out: Path) -> None:
 # ------------------------------------------------------------------ the tests
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     out = tmp_path_factory.mktemp("dp")
-    ref = _jax_side(out)
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
-               DEVIAS_TPU_COORDINATOR=f"127.0.0.1:{_free_port()}", DEVIAS_TPU_NUM_PROCS=str(WORLD))
-    procs = [subprocess.Popen([sys.executable, __file__, str(r), str(out)], cwd=ROOT,
-                              env=dict(env, DEVIAS_TPU_PROC_ID=str(r)), stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=300)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-4000:]
-    return ref, [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
+    return run_ranks(__file__, out, _jax_side, timeout=RANKS_TIMEOUT)
 
 
 def _check_trajectory(got, want):

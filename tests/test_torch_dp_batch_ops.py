@@ -22,17 +22,19 @@ as `tests/test_torch_train.py` holds them, the two ranks bitwise equal;
 The JAX side runs in the pytest process; the port side runs in two
 processes joined by gloo (this file is their program, `python
 tests/test_torch_dp_batch_ops.py RANK DIR`, and imports no JAX at module
-level)."""
+level).
+The ranks start first, on the weights and batches the pytest process
+writes to `ref.pt`; the JAX results are computed while they run."""
 
-import os
-import socket
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from _torch_parallel import run_ranks  # noqa: E402
 
 WORLD = 2
 SMALL = dict(depth=2, embed_dim=64, num_heads=4)
@@ -43,7 +45,7 @@ OPT = dict(lr=1e-3, min_lr=1e-5, warmup_lr=1e-4, total_steps=8, warmup_steps=1, 
            agg_block_scale=0.8, weight_decay=0.05, weight_decay_end=0.1, num_layers=2)
 PROB_AUG = 0.8
 U, B, STEPS = 2, 8, 2  # global batch 8 = update_freq 2 x micro-batch 4 = 2 ranks of 2
-ROOT = Path(__file__).resolve().parents[1]
+RANKS_TIMEOUT = 200  # s: over three times the file's slowest test under -n 6, 55.83 s
 
 
 def _zero_grad(name):
@@ -55,9 +57,10 @@ def _zero_grad(name):
 # ------------------------------------------------------------------ the JAX side
 
 
-def _jax_side(out: Path) -> dict:
-    """Weights, batches, draws and the JAX one-process trajectories, saved
-    for the ranks."""
+def _jax_side(out: Path, start) -> dict:
+    """Each kind's weights, batches and draws, saved to `out/ref.pt` for
+    the ranks, which `start()` then starts; meanwhile the JAX one-process
+    trajectory of each kind."""
     import jax
     import jax.numpy as jnp
 
@@ -83,40 +86,46 @@ def _jax_side(out: Path) -> dict:
 
     data = np.random.default_rng(5)
     key = jax.random.PRNGKey(7)
-    ref = {}
+    ref, steps = {}, {}
 
-    def run(kind, model, params, make_step, draws_of):
-        tx, lr_fn = jax_make_optimizer(params, JaxOptimConfig(**OPT))
-        jstep = jax.jit(make_step(model, tx, lr_fn))
-        state = JaxTrainState.create(params, tx)
-        batches, metrics, draws = [], [], []
-        for s in range(STEPS):
+    def inputs(kind, model, params, make_step, draws_of):
+        batches = []
+        for _ in range(STEPS):
             batch = {"videos": data.normal(size=(B, 4, 32, 32, 3)).astype(np.float32),
                      "labels": data.integers(0, 5, size=B), "scene_labels": data.integers(0, 4, size=B)}
             if kind == "class":
                 batch.pop("scene_labels")
-            state, m = jstep(state, {k: jnp.asarray(v) for k, v in batch.items()}, key)
             batches.append(batch)
-            metrics.append({k: float(v) for k, v in m.items()})
-            draws.append([draws_of(step_key(key, s, U, u)) for u in range(U)])
         agg = HVU["agg_depth"] if kind == "hvu" else 0
         ref[kind] = {"init": state_dict_from_jax(params, "slot" if kind == "hvu" else "plain", agg),
-                     "final": state_dict_from_jax(jax.tree.map(np.asarray, state.params),
-                                                  "slot" if kind == "hvu" else "plain", agg),
-                     "batches": batches, "metrics": metrics, "draws": draws}
+                     "batches": batches,
+                     "draws": [[draws_of(step_key(key, s, U, u)) for u in range(U)] for s in range(STEPS)]}
+        steps[kind] = (model, params, make_step)
 
     jm, params = params_of("slot_vit_base_patch16_224", 3, **HVU)
-    run("hvu", jm, params,
-        lambda m, tx, lr_fn: make_hvu_train_step(m, tx, JaxSlotLossConfig(5, 4), JaxTrainStepConfig(
-            update_freq=U, use_fame=True, fame=JaxFAMEConfig(prob_aug=PROB_AUG)), lr_fn),
-        lambda k: fame_draws_from_key(jax.random.split(k, 3)[0], B // U, PROB_AUG))
+    inputs("hvu", jm, params,
+           lambda m, tx, lr_fn: make_hvu_train_step(m, tx, JaxSlotLossConfig(5, 4), JaxTrainStepConfig(
+               update_freq=U, use_fame=True, fame=JaxFAMEConfig(prob_aug=PROB_AUG)), lr_fn),
+           lambda k: fame_draws_from_key(jax.random.split(k, 3)[0], B // U, PROB_AUG))
     jmix = JaxMixupConfig(**MIXUP)
     jm, params = params_of("vit_base_patch16_224", 4, **PLAIN)
-    run("class", jm, params,
-        lambda m, tx, lr_fn: make_classification_train_step(m, tx, soft_target_cross_entropy, U, lr_fn,
-                                                            mixup_cfg=jmix),
-        lambda k: mixup_draws_from_key(jax.random.split(k, 3)[2], jmix, B // U, 32, 32))
+    inputs("class", jm, params,
+           lambda m, tx, lr_fn: make_classification_train_step(m, tx, soft_target_cross_entropy, U, lr_fn,
+                                                               mixup_cfg=jmix),
+           lambda k: mixup_draws_from_key(jax.random.split(k, 3)[2], jmix, B // U, 32, 32))
     torch.save(ref, out / "ref.pt")
+    start()
+    for kind, (model, params, make_step) in steps.items():
+        tx, lr_fn = jax_make_optimizer(params, JaxOptimConfig(**OPT))
+        jstep = jax.jit(make_step(model, tx, lr_fn))
+        state = JaxTrainState.create(params, tx)
+        metrics = []
+        for batch in ref[kind]["batches"]:
+            state, m = jstep(state, {k: jnp.asarray(v) for k, v in batch.items()}, key)
+            metrics.append({k: float(v) for k, v in m.items()})
+        agg = HVU["agg_depth"] if kind == "hvu" else 0
+        ref[kind].update(metrics=metrics, final=state_dict_from_jax(jax.tree.map(np.asarray, state.params),
+                                                                    "slot" if kind == "hvu" else "plain", agg))
     return ref
 
 
@@ -171,7 +180,6 @@ def _rank_main(rank: int, out: Path) -> None:
     from devias_tpu_torch.aug import FAMEConfig, MixupConfig, fame_augment_hvu, mixup_cutmix
     from devias_tpu_torch.core.dist import make_mesh, maybe_init_distributed, mix_generators, over_data_group
 
-    torch.set_num_threads(1)
     assert maybe_init_distributed("cpu") and dist.get_backend() == "gloo"
     ref = torch.load(out / "ref.pt", weights_only=False)
     mesh = make_mesh()
@@ -206,30 +214,10 @@ def _rank_main(rank: int, out: Path) -> None:
 # ------------------------------------------------------------------ the tests
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     out = tmp_path_factory.mktemp("dp_ops")
-    ref = _jax_side(out)
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
-               DEVIAS_TPU_COORDINATOR=f"127.0.0.1:{_free_port()}", DEVIAS_TPU_NUM_PROCS=str(WORLD))
-    procs = [subprocess.Popen([sys.executable, __file__, str(r), str(out)], cwd=ROOT,
-                              env=dict(env, DEVIAS_TPU_PROC_ID=str(r)), stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=300)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-4000:]
-    return ref, [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
+    return run_ranks(__file__, out, _jax_side, WORLD, timeout=RANKS_TIMEOUT)
 
 
 @pytest.mark.parametrize("kind", ["hvu", "class"])

@@ -41,17 +41,6 @@ TINY = dict(depth=2, embed_dim=64, num_heads=4)
 TINY_GEOMETRY = dict(res=96, frames=4)
 
 
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The tiny steps are many small ops: one thread runs them about as
-    fast as eight on an idle CPU, and many times faster beside other busy
-    processes, where eight threads keep waiting on each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _script_namespace(script: str, keep) -> dict:
     """Run the top-level statements of `scripts/<script>` that `keep(node)`
     selects, with numpy as `np`; return the namespace."""

@@ -21,10 +21,6 @@ patches and the scene token, 10 tokens):
     the global micro-batch's (`tests/_mt_dp_rank.py` is the ranks'
     program)."""
 
-import os
-import socket
-import subprocess
-import sys
 from pathlib import Path
 
 import jax
@@ -47,9 +43,12 @@ from devias_tpu_torch.losses import cross_entropy, label_smoothing_cross_entropy
 from devias_tpu_torch.nn import create_model
 from devias_tpu_torch.train import OptimConfig, TrainState, make_multi_task_train_step, make_optimizer
 
+from _torch_parallel import run_ranks
+
 SMALL = dict(depth=2, embed_dim=64, num_heads=4)
 A, S = 5, 4  # action classes; scene classes (the teacher's head)
 MT = dict(num_classes=A, num_scene_classes=S, **SMALL)
+MT_DP_TIMEOUT = 70  # s: over three times the DP test's time under -n 6, 19.55 s
 TEACHER = dict(num_classes=S, use_mean_pooling=False, **SMALL)
 GEOM = dict(img_size=32, num_frames=4)
 OPT = dict(lr=1e-3, min_lr=1e-5, warmup_lr=1e-4, total_steps=8, warmup_steps=2, layer_decay=0.75,
@@ -186,12 +185,6 @@ def test_scene_token_groups_match_jax_trees():
     assert got["cls_token"] == got["pos_embed"] == (pytest.approx(0.75 ** 3), False)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def test_data_parallel_step_matches_jax_whole_batch(tmp_path):
     """Two gloo ranks, each holding half of every micro-batch (update_freq
     2, global batch 8), a unified head under KL, against the JAX step on
@@ -202,44 +195,35 @@ def test_data_parallel_step_matches_jax_whole_batch(tmp_path):
     jm, params = _jax_params("disentangle_vit_base_patch16_224", 9, **kw)
     jt, tparams = _jax_params("vit_base_patch16_224", 10, **TEACHER)
     tx, lr_fn = jax_make_optimizer(params, JaxOptimConfig(**DP_OPT))
-    state = JaxTrainState.create(params, tx)
     jstep = jax.jit(jax_make_multi_task_train_step(jm, jt, tx, A, "KL", 1.0, True, jax_ce, U, lr_fn))
     data = np.random.default_rng(11)
     # teacher logits that differ in scale across the batch, so the global
     # minimum is not every half's own
-    batches, metrics = [], []
+    batches = []
     for s in range(STEPS):
         videos = data.normal(size=(B, 4, 32, 32, 3)).astype(np.float32)
         videos *= np.linspace(0.5, 3.0, B, dtype=np.float32)[:, None, None, None, None]
-        batch = {"videos": videos, "labels": data.integers(0, A, size=B)}
-        state, m = jstep(state, tparams, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(1))
-        batches.append(batch)
-        metrics.append({k: float(v) for k, v in m.items()})
-    ref = {"init": state_dict_from_jax(params, "multi_task"), "teacher": state_dict_from_jax(tparams, "plain"),
-           "final": state_dict_from_jax(jax.tree.map(np.asarray, state.params), "multi_task"),
-           "batches": batches, "metrics": metrics}
-    torch.save(ref, tmp_path / "ref.pt")
-    env = dict(os.environ, PYTHONPATH=f"{ROOT}{os.pathsep}{ROOT / 'tests'}", OMP_NUM_THREADS="1",
-               DEVIAS_TPU_COORDINATOR=f"127.0.0.1:{_free_port()}", DEVIAS_TPU_NUM_PROCS=str(WORLD))
-    procs = [subprocess.Popen([sys.executable, str(ROOT / "tests" / "_mt_dp_rank.py"), str(r), str(tmp_path)],
-                              cwd=ROOT, env=dict(env, DEVIAS_TPU_PROC_ID=str(r)), stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=300)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-4000:]
-    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
+        batches.append({"videos": videos, "labels": data.integers(0, A, size=B)})
+    torch.save({"init": state_dict_from_jax(params, "multi_task"), "teacher": state_dict_from_jax(tparams, "plain"),
+                "batches": batches}, tmp_path / "ref.pt")
+
+    def jax_steps(out, start):
+        start()  # the ranks run meanwhile
+        state, metrics = JaxTrainState.create(params, tx), []
+        for batch in batches:
+            state, m = jstep(state, tparams, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(1))
+            metrics.append({k: float(v) for k, v in m.items()})
+        return metrics, state_dict_from_jax(jax.tree.map(np.asarray, state.params), "multi_task")
+
+    (metrics, want), ranks = run_ranks(ROOT / "tests" / "_mt_dp_rank.py", tmp_path, jax_steps, WORLD,
+                                       timeout=MT_DP_TIMEOUT)
     for got_metrics, final, lr_sum in ranks:
         for s, (m, w) in enumerate(zip(got_metrics, metrics)):
             assert set(m) == set(w)
             for k in w:
                 np.testing.assert_allclose(m[k], w[k], rtol=2e-4, atol=1e-6, err_msg=f"step {s} {k}")
         for name, p in final.items():
-            g, w = p.numpy(), ref["final"][name]
+            g, w = p.numpy(), want[name]
             tol = 1e-5 + 3e-4 * np.abs(w).max()
             off = np.abs(g - w) > tol
             assert off.mean() <= 0.02, (name, off.mean())

@@ -15,8 +15,6 @@ counterpart in `tests/test_torch_model_options.py`
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
 from devias_tpu.nn import create_model as jax_create_model
 from devias_tpu_torch.ckpt.from_jax import load_jax_params
@@ -25,17 +23,6 @@ from devias_tpu_torch.nn import create_model
 from devias_tpu_torch.train import OptimConfig, TrainState, TrainStepConfig, make_optimizer, make_slot_train_step
 
 TINY = dict(depth=2, embed_dim=64, num_heads=4)
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The tiny steps are many small ops: one thread runs them about as
-    fast as eight on an idle CPU, and many times faster beside other busy
-    processes, where eight threads keep waiting on each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _setup(matching: str):

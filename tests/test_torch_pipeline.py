@@ -24,7 +24,9 @@ depth 4), over four gloo ranks:
 The JAX side runs in the pytest process on a 4-device slice of the
 conftest CPU mesh with the unfused attention; the port side runs in four
 gloo processes, this file being their program (`python
-tests/test_torch_pipeline.py RANK DIR`)."""
+tests/test_torch_pipeline.py RANK DIR`).
+The ranks start first, on the weights and batches the pytest process
+writes to `ref.pt`; the JAX results are computed while they run."""
 
 import inspect
 import sys
@@ -45,6 +47,7 @@ LAYOUTS = ((2, 2, 2), (1, 4, 4))
 # the student's options per full-step trajectory of (c)
 FULL_STEP = {"full": {}, "layerscale": dict(init_values=0.1)}
 NOISE_SHARE = 1e-4
+RANKS_TIMEOUT = 300  # s: over three times the file's slowest test under -n 6, 87.54 s
 
 
 def _videos():
@@ -55,7 +58,10 @@ def _weight():
     return np.random.default_rng(2).normal(size=(1, 1, SLOT["embed_dim"])).astype(np.float32)
 
 
-def _jax_side(out: Path) -> dict:
+def _jax_side(out: Path, start) -> dict:
+    """Weights and batches, saved to `out/ref.pt` for the ranks, which
+    `start()` then starts; meanwhile (b)'s gradients and (c)'s
+    trajectories of the JAX package."""
     import jax
     import jax.numpy as jnp
 
@@ -71,41 +77,48 @@ def _jax_side(out: Path) -> dict:
 
     jm, params = jax_params("slot_vit_base_patch16_224", 3, **SLOT)
     jt, tparams = jax_params("vit_base_patch16_224", 4, **TEACHER)
+    data = np.random.default_rng(5)
+    batches = [{"videos": data.normal(size=(B, T, HW, HW, 3)).astype(np.float32) * 0.3,
+                "labels": data.integers(0, 5, size=B)} for _ in range(STEPS)]
+    ref = {"student": state_dict_from_jax(params, "slot", SLOT["agg_depth"]),
+           "teacher": state_dict_from_jax(tparams, "plain"), "batches": batches}
+    # the variant without options is the student itself
+    students = {variant: jax_params("slot_vit_base_patch16_224", 3, **SLOT, **kw) if kw else (jm, params)
+                for variant, kw in FULL_STEP.items()}
+    for variant, (_, student) in students.items():
+        ref[variant] = {"student": state_dict_from_jax(student, "slot", SLOT["agg_depth"])}
+    torch.save(ref, out / "ref.pt")
+    start()
     devices = jax.devices()[:WORLD]
 
     # (b) the backbone's gradients through the 4-stage pipeline
     backbone = VideoViT(**jm.backbone_kwargs())
     w = jnp.asarray(_weight())
     mesh4 = make_pp_mesh(4, devices=devices)
-    grads = jax.grad(lambda bp: (pipeline_tokens(backbone, bp, jnp.asarray(_videos()), mesh4, n_micro=4) * w).mean())(
-        params["backbone"])
-    backbone_grads = {}
-    backbone_from_jax(backbone_grads, jax.tree.map(np.asarray, grads))
+    grads = jax.jit(jax.grad(lambda bp: (pipeline_tokens(backbone, bp, jnp.asarray(_videos()), mesh4, n_micro=4)
+                                         * w).mean()))(params["backbone"])
+    ref["backbone_grads"] = {}
+    backbone_from_jax(ref["backbone_grads"], jax.tree.map(np.asarray, grads))
 
     # (c) the full step on (2 data, 2 pipe), without and with LayerScale
     mesh2 = make_pp_mesh(2, devices=devices)
-    data = np.random.default_rng(5)
-    batches = [{"videos": data.normal(size=(B, T, HW, HW, 3)).astype(np.float32) * 0.3,
-                "labels": data.integers(0, 5, size=B)} for _ in range(STEPS)]
-    ref = {"student": state_dict_from_jax(params, "slot", SLOT["agg_depth"]),
-           "teacher": state_dict_from_jax(tparams, "plain"), "backbone_grads": backbone_grads, "batches": batches}
-    for variant, kw in FULL_STEP.items():
-        jm, params = jax_params("slot_vit_base_patch16_224", 3, **SLOT, **kw)
+    # replicated over the mesh from the start, so the second step reuses the first's compilation
+    replicated = jax.sharding.NamedSharding(mesh2, jax.sharding.PartitionSpec())
+    tparams = jax.device_put(tparams, replicated)
+    for variant, (jm, params) in students.items():
         tx, lr_fn = jax_make_optimizer(params, JaxOptimConfig(**OPT))
         step = jax.jit(jax_make_slot_train_step(jm, jt, tx, JaxSlotLossConfig(5, 4),
                                                 JaxTrainStepConfig(use_fame=False, pp_microbatches=2), lr_fn,
                                                 pp_mesh=mesh2))
-        state = JaxTrainState.create(params, tx)
+        state = jax.device_put(JaxTrainState.create(params, tx), replicated)
         metrics = []
         for batch in batches:
             with mesh2:
                 state, m = step(state, tparams, {k: jnp.asarray(v) for k, v in batch.items()},
                                 jax.random.PRNGKey(5))
             metrics.append({k: float(v) for k, v in m.items()})
-        ref[variant] = {"student": state_dict_from_jax(params, "slot", SLOT["agg_depth"]), "metrics": metrics,
-                        "final": state_dict_from_jax(jax.tree.map(np.asarray, state.params), "slot",
-                                                     SLOT["agg_depth"])}
-    torch.save(ref, out / "ref.pt")
+        ref[variant].update(metrics=metrics, final=state_dict_from_jax(jax.tree.map(np.asarray, state.params), "slot",
+                                                                       SLOT["agg_depth"]))
     return ref
 
 
@@ -138,7 +151,6 @@ def _rank_main(rank: int, out: Path) -> None:
     from devias_tpu_torch.losses import SlotLossConfig
     from devias_tpu_torch.train import OptimConfig, TrainState, TrainStepConfig, make_optimizer, make_slot_train_step
 
-    torch.set_num_threads(1)
     assert maybe_init_distributed("cpu") and dist.get_backend() == "gloo"
     ref = torch.load(out / "ref.pt", weights_only=False)
     videos = torch.from_numpy(_videos())
@@ -191,8 +203,7 @@ def _rank_main(rank: int, out: Path) -> None:
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     out = tmp_path_factory.mktemp("pp")
-    ref = _jax_side(out)
-    return ref, run_ranks(__file__, out)
+    return run_ranks(__file__, out, _jax_side, timeout=RANKS_TIMEOUT)
 
 
 @pytest.mark.parametrize("data,pipe", [(2, 2), (1, 4)])

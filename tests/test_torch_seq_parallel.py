@@ -10,17 +10,19 @@ and imports no JAX at module level), on weights imported through
 `ckpt/from_jax.py`; each rank writes what it saw and the tests compare.
 The SP step with the Segformer mix is held to the port's one-process
 step (which `tests/test_torch_segformer.py` holds to the JAX step). The
-whole file runs in well under a minute."""
+whole file runs in well under a minute.
+The ranks start first, on the weights and batches the pytest process
+writes to `ref.pt`; the JAX results are computed while they run."""
 
-import os
-import socket
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from _torch_parallel import run_ranks  # noqa: E402
 
 SEQ = 4
 SMALL = dict(depth=2, embed_dim=64, num_heads=4)
@@ -33,7 +35,7 @@ PROB_AUG = 0.8
 STEPS = 2
 # the Segformer mix's draws for the SP step with `segformer_apply`
 SEG_DRAWS = {"perm": [2, 0, 3, 1], "keep": [True, True, False, True], "frame": 1}
-ROOT = Path(__file__).resolve().parents[1]
+RANKS_TIMEOUT = 250  # s: over three times the file's slowest test under -n 6, 69.82 s
 # a bias every slot query shares cancels in the slot softmax: its true
 # gradient is zero and both frameworks return rounding noise
 ZERO_GRAD = ("agg_block.layers.0.0.norm.bias",)
@@ -42,8 +44,10 @@ ZERO_GRAD = ("agg_block.layers.0.0.norm.bias",)
 # ------------------------------------------------------------------ the JAX side
 
 
-def _jax_side(out: Path) -> dict:
-    """Weights, inputs and the JAX package's SP results, saved for the ranks."""
+def _jax_side(out: Path, start) -> dict:
+    """Weights, clips, batches and FAME draws, saved to `out/ref.pt` for
+    the ranks, which `start()` then starts; meanwhile the JAX package's
+    SP tokens, gradients and trajectory."""
     import jax
     import jax.numpy as jnp
 
@@ -73,12 +77,25 @@ def _jax_side(out: Path) -> dict:
 
     jm, params = params_of("slot_vit_base_patch16_224", 3, **SLOT)
     jt, tparams = params_of("vit_base_patch16_224", 4, **TEACHER)
-    mesh = make_sp_mesh(SEQ, devices=jax.devices()[:SEQ])
-    sp_backbone = JaxVideoViT(**jm.backbone_kwargs(), seq_axis=SEQ_AXIS, seq_shards=SEQ)
     data = np.random.default_rng(5)
     videos = data.normal(size=(B, T, HW, HW, 3)).astype(np.float32)
+    batches = [{"videos": data.normal(size=(B, T, HW, HW, 3)).astype(np.float32),
+                "labels": data.integers(0, 5, size=B)} for _ in range(STEPS)]
+    key = jax.random.PRNGKey(7)
+    draws = []
+    for s in range(STEPS):
+        # FAME's draws in the JAX step: split(fold_in(key, step), 1)[0] -> split(., 3)[0] -> split
+        perm_key, keep_key = jax.random.split(jax.random.split(jax.random.split(jax.random.fold_in(key, s), 1)[0], 3)[0])
+        draws.append({"perm": np.asarray(jax.random.permutation(perm_key, B)),
+                      "keep": np.asarray(jax.random.uniform(keep_key, (B,))) < PROB_AUG})
+    ref = {"student": state_dict_from_jax(params, "slot", SLOT["agg_depth"]),
+           "teacher": state_dict_from_jax(tparams, "plain"), "videos": videos, "batches": batches, "draws": draws}
+    torch.save(ref, out / "ref.pt")
+    start()
+    mesh = make_sp_mesh(SEQ, devices=jax.devices()[:SEQ])
+    sp_backbone = JaxVideoViT(**jm.backbone_kwargs(), seq_axis=SEQ_AXIS, seq_shards=SEQ)
 
-    tokens = np.asarray(jax.jit(lambda p, v: jax_seq_parallel_tokens(sp_backbone, p, v, mesh))(
+    ref["tokens"] = np.asarray(jax.jit(lambda p, v: jax_seq_parallel_tokens(sp_backbone, p, v, mesh))(
         params["backbone"], jnp.asarray(videos)))
 
     def slots_loss(p):
@@ -87,6 +104,7 @@ def _jax_side(out: Path) -> dict:
         return (slots.astype(jnp.float32) ** 2).sum()
 
     grads = jax.jit(jax.grad(slots_loss))(params)
+    ref["grads"] = state_dict_from_jax(jax.tree.map(np.asarray, grads), "slot", SLOT["agg_depth"])
 
     cfg = JaxOptimConfig(**OPT)
     tx, _ = jax_make_optimizer(params, cfg)
@@ -96,29 +114,12 @@ def _jax_side(out: Path) -> dict:
     tparams = jax.device_put(tparams, replicated)
     step_cfg = JaxTrainStepConfig(use_fame=True, fame=JaxFAMEConfig(beta=0.5, prob_aug=PROB_AUG))
     jstep = jax.jit(jax_make_slot_train_step(jm, jt, tx, JaxSlotLossConfig(5, 4), step_cfg, sp_mesh=mesh))
-    key = jax.random.PRNGKey(7)
-    batches, metrics, draws = [], [], []
-    for s in range(STEPS):
-        batch = {"videos": data.normal(size=(B, T, HW, HW, 3)).astype(np.float32),
-                 "labels": data.integers(0, 5, size=B)}
+    ref["metrics"] = []
+    for batch in batches:
         with mesh:
             state, m = jstep(state, tparams, {k: jnp.asarray(v) for k, v in batch.items()}, key)
-        batches.append(batch)
-        metrics.append({k: float(v) for k, v in m.items()})
-        # FAME's draws in the JAX step: split(fold_in(key, step), 1)[0] -> split(., 3)[0] -> split
-        perm_key, keep_key = jax.random.split(jax.random.split(jax.random.split(jax.random.fold_in(key, s), 1)[0], 3)[0])
-        draws.append({"perm": np.asarray(jax.random.permutation(perm_key, B)),
-                      "keep": np.asarray(jax.random.uniform(keep_key, (B,))) < PROB_AUG})
-
-    ref = {
-        "student": state_dict_from_jax(params, "slot", SLOT["agg_depth"]),
-        "teacher": state_dict_from_jax(tparams, "plain"),
-        "videos": videos, "tokens": tokens,
-        "grads": state_dict_from_jax(jax.tree.map(np.asarray, grads), "slot", SLOT["agg_depth"]),
-        "batches": batches, "metrics": metrics, "draws": draws,
-        "final": state_dict_from_jax(jax.tree.map(np.asarray, state.params), "slot", SLOT["agg_depth"]),
-    }
-    torch.save(ref, out / "ref.pt")
+        ref["metrics"].append({k: float(v) for k, v in m.items()})
+    ref["final"] = state_dict_from_jax(jax.tree.map(np.asarray, state.params), "slot", SLOT["agg_depth"])
     return ref
 
 
@@ -142,7 +143,6 @@ def _rank_main(rank: int, out: Path) -> None:
     from devias_tpu_torch.train import OptimConfig, TrainState, TrainStepConfig, make_optimizer, make_slot_train_step
     from devias_tpu_torch.train.step import mix_clips
 
-    torch.set_num_threads(1)
     initialised = maybe_init_distributed("cpu")
     assert initialised and dist.get_backend() == "gloo"
     ref = torch.load(out / "ref.pt", weights_only=False)
@@ -258,30 +258,10 @@ def _rank_main(rank: int, out: Path) -> None:
 # ------------------------------------------------------------------ the tests
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     out = tmp_path_factory.mktemp("sp")
-    ref = _jax_side(out)
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
-               DEVIAS_TPU_COORDINATOR=f"127.0.0.1:{_free_port()}", DEVIAS_TPU_NUM_PROCS=str(SEQ))
-    procs = [subprocess.Popen([sys.executable, __file__, str(r), str(out)], cwd=ROOT,
-                              env=dict(env, DEVIAS_TPU_PROC_ID=str(r)), stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(SEQ)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=300)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-4000:]
-    return ref, [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(SEQ)]
+    return run_ranks(__file__, out, _jax_side, SEQ, timeout=RANKS_TIMEOUT)
 
 
 def test_tokens_match_jax_sp_and_unsharded(run):

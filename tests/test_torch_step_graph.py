@@ -34,14 +34,6 @@ OPT = dict(lr=1e-3, min_lr=1e-5, warmup_lr=1e-4, total_steps=4, warmup_steps=2, 
            agg_block_scale=0.1, weight_decay_end=0.1, num_layers=2, momentum=0.8)
 
 
-@pytest.fixture(autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _previous_update(opt, cfg, params, grads, buffers, count):
     """One update as the optimizer computed it with Python-float scalars
     (lr, wd, the bias corrections and -(lr * s) passed to the foreach

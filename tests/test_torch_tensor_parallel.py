@@ -22,7 +22,9 @@ small size (depth 2, width 64, 4 heads, 4x32x32 clips, no FAME):
 The JAX side runs in the pytest process on a 4-device slice of the
 conftest CPU mesh with the unfused attention; the port side runs in four
 gloo processes, this file being their program (`python
-tests/test_torch_tensor_parallel.py RANK DIR`)."""
+tests/test_torch_tensor_parallel.py RANK DIR`).
+The ranks start first, on the weights and batches the pytest process
+writes to `ref.pt`; the JAX results are computed while they run."""
 
 import sys
 from pathlib import Path
@@ -42,9 +44,13 @@ LR_SUM = STEPS * OPT["lr"]  # no warmup: the lr of both steps is at most OPT's
 VARIANTS = {"plain": {}, "layerscale": dict(init_values=0.1)}
 # and for the eval forward only (the plain student's weights without the biases)
 EVAL_VARIANTS = dict(VARIANTS, no_qkv_bias=dict(qkv_bias=False))
+RANKS_TIMEOUT = 220  # s: over three times the file's slowest test under -n 6, 62.85 s
 
 
-def _jax_side(out: Path) -> dict:
+def _jax_side(out: Path, start) -> dict:
+    """Weights and batches, saved to `out/ref.pt` for the ranks, which
+    `start()` then starts; meanwhile the JAX TP trajectory of each of
+    VARIANTS."""
     import jax
     import jax.numpy as jnp
 
@@ -58,26 +64,31 @@ def _jax_side(out: Path) -> dict:
     from devias_tpu_torch.ckpt.from_jax import state_dict_from_jax
 
     jt, tparams = jax_params("vit_base_patch16_224", 4, **TEACHER)
-    mesh = make_mesh(model_parallel=TP, devices=jax.devices()[:WORLD])
     data = np.random.default_rng(5)
     batches = [{"videos": data.normal(size=(B, T, HW, HW, 3)).astype(np.float32) * 0.3,
                 "labels": data.integers(0, 5, size=B)} for _ in range(STEPS)]
     ref = {"teacher": state_dict_from_jax(tparams, "plain"), "batches": batches}
-    for variant, kw in VARIANTS.items():
-        jm, params = jax_params("slot_vit_base_patch16_224", 3, **SLOT, **kw)
+    students = {variant: jax_params("slot_vit_base_patch16_224", 3, **SLOT, **kw) for variant, kw in VARIANTS.items()}
+    for variant, (_, params) in students.items():
+        ref[variant] = {"student": state_dict_from_jax(params, "slot", SLOT["agg_depth"])}
+    torch.save(ref, out / "ref.pt")
+    start()
+    mesh = make_mesh(model_parallel=TP, devices=jax.devices()[:WORLD])
+    for variant, (jm, params) in students.items():
         tx, lr_fn = jax_make_optimizer(params, JaxOptimConfig(**OPT))
         step = jax.jit(jax_make_slot_train_step(jm, jt, tx, JaxSlotLossConfig(5, 4),
                                                 JaxTrainStepConfig(use_fame=False), lr_fn))
         state = shard_train_state(JaxTrainState.create(params, tx), mesh, tp=True)
+        # each step's state placed as the first's, so the second step reuses the first's compilation
+        placement = jax.tree.map(lambda a: a.sharding, state)
         metrics = []
         for batch in batches:
             with mesh:
                 state, m = step(state, tparams, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(5))
+            state = jax.device_put(state, placement)
             metrics.append({k: float(v) for k, v in m.items()})
-        ref[variant] = {"student": state_dict_from_jax(params, "slot", SLOT["agg_depth"]), "metrics": metrics,
-                        "final": state_dict_from_jax(jax.tree.map(np.asarray, state.params), "slot",
-                                                     SLOT["agg_depth"])}
-    torch.save(ref, out / "ref.pt")
+        ref[variant].update(metrics=metrics, final=state_dict_from_jax(jax.tree.map(np.asarray, state.params), "slot",
+                                                                       SLOT["agg_depth"]))
     return ref
 
 
@@ -88,7 +99,6 @@ def _rank_main(rank: int, out: Path) -> None:
     from devias_tpu_torch.losses import SlotLossConfig
     from devias_tpu_torch.train import OptimConfig, TrainState, TrainStepConfig, make_optimizer, make_slot_train_step
 
-    torch.set_num_threads(1)
     assert maybe_init_distributed("cpu") and dist.get_backend() == "gloo"
     ref = torch.load(out / "ref.pt", weights_only=False)
     mesh = make_mesh(model_parallel=TP)
@@ -124,8 +134,7 @@ def _rank_main(rank: int, out: Path) -> None:
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     out = tmp_path_factory.mktemp("tp")
-    ref = _jax_side(out)
-    return ref, run_ranks(__file__, out)
+    return run_ranks(__file__, out, _jax_side, timeout=RANKS_TIMEOUT)
 
 
 def test_cut_parameters_are_tp_param_spec_leaves():

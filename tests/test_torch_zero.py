@@ -19,7 +19,9 @@ the JAX package's, in float32 at a small size (depth 2, width 64, 4 heads,
 The JAX side runs in the pytest process on a 4-device slice of the
 conftest CPU mesh with the unfused attention; the port side runs in four
 gloo processes, this file being their program (`python
-tests/test_torch_zero.py RANK DIR`; it imports no JAX at module level)."""
+tests/test_torch_zero.py RANK DIR`; it imports no JAX at module level).
+The ranks start first, on the weights and batches the pytest process
+writes to `ref.pt`; the JAX results are computed while they run."""
 
 import sys
 from pathlib import Path
@@ -36,12 +38,15 @@ OPT = dict(lr=1e-3, min_lr=1e-5, warmup_lr=1e-4, total_steps=8, warmup_steps=1, 
            agg_block_scale=0.1, weight_decay=0.05, weight_decay_end=0.1, num_layers=2, clip_grad=1.0)
 B, STEPS = 2 * WORLD, 2
 MODES = ("zero1", "fsdp")
+RANKS_TIMEOUT = 230  # s: over three times the file's slowest test under -n 6, 64.24 s
 
 
 # ------------------------------------------------------------------ the JAX side
 
 
-def _jax_side(out: Path) -> dict:
+def _jax_side(out: Path, start) -> dict:
+    """Weights and batches, saved to `out/ref.pt` for the ranks, which
+    `start()` then starts; meanwhile the JAX steps under each of MODES."""
     import jax
     import jax.numpy as jnp
 
@@ -56,15 +61,17 @@ def _jax_side(out: Path) -> dict:
 
     jm, params = jax_params("slot_vit_base_patch16_224", 3, **SLOT)
     jt, tparams = jax_params("vit_base_patch16_224", 4, **TEACHER)
-    tx, lr_fn = jax_make_optimizer(params, JaxOptimConfig(**OPT))
-    step = jax.jit(jax_make_slot_train_step(jm, jt, tx, JaxSlotLossConfig(5, 4), JaxTrainStepConfig(use_fame=False),
-                                            lr_fn))
-    mesh = make_mesh(devices=jax.devices()[:WORLD])
     data = np.random.default_rng(5)
     batches = [{"videos": data.normal(size=(B, T, HW, HW, 3)).astype(np.float32),
                 "labels": data.integers(0, 5, size=B)} for _ in range(STEPS)]
     ref = {"student": state_dict_from_jax(params, "slot", SLOT["agg_depth"]),
            "teacher": state_dict_from_jax(tparams, "plain"), "batches": batches}
+    torch.save(ref, out / "ref.pt")
+    start()
+    tx, lr_fn = jax_make_optimizer(params, JaxOptimConfig(**OPT))
+    step = jax.jit(jax_make_slot_train_step(jm, jt, tx, JaxSlotLossConfig(5, 4), JaxTrainStepConfig(use_fame=False),
+                                            lr_fn))
+    mesh = make_mesh(devices=jax.devices()[:WORLD])
     teacher = jax.device_put(tparams, jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec()))
     for mode in MODES:
         state = shard_train_state(JaxTrainState.create(params, tx, use_ema=True), mesh, **{mode: True})
@@ -76,7 +83,6 @@ def _jax_side(out: Path) -> dict:
             metrics.append({k: float(v) for k, v in m.items()})
         ref[mode] = {"metrics": metrics,
                      "final": state_dict_from_jax(jax.tree.map(np.asarray, state.params), "slot", SLOT["agg_depth"])}
-    torch.save(ref, out / "ref.pt")
     return ref
 
 
@@ -138,7 +144,6 @@ def _rank_main(rank: int, out: Path) -> None:
 
     from devias_tpu_torch.core.dist import maybe_init_distributed
 
-    torch.set_num_threads(1)
     assert maybe_init_distributed("cpu") and dist.get_backend() == "gloo"
     ref = torch.load(out / "ref.pt", weights_only=False)
     res = {mode: _run(ref, rank, mode, out) for mode in (None, *MODES)}
@@ -153,8 +158,7 @@ def _rank_main(rank: int, out: Path) -> None:
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     out = tmp_path_factory.mktemp("zero")
-    ref = _jax_side(out)
-    return ref, run_ranks(__file__, out), out
+    return *run_ranks(__file__, out, _jax_side, timeout=RANKS_TIMEOUT), out
 
 
 @pytest.mark.parametrize("n", [2, 4, 8])
